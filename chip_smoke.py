@@ -38,7 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, as tabled in the measurement guide):
+# H100 SXM peaks (NVIDIA data sheet):
 # HBM bytes/s, and the float32 non-tensor rate used for the kernels' few
 # 32-bit integer operations per byte
 PEAK_BYTES_S = 3.35e12
