@@ -6,24 +6,38 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale N]
 Phases, each fatal on failure (no phase's error is caught):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the five Hopper kernels from ``src/repro_torch/kernels/csrc``
+2. build the six Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
-3. hold each kernel against its plain PyTorch version on small CUDA inputs;
+3. hold each kernel against its plain PyTorch version on synthetic CUDA
+   inputs (``delta_merge`` also on empty arrays, tombstone runs longer than
+   256 and a base array of more than 2^20 words);
 4. parity scale: LUBM (scale 8, density 0.6) and BSBM (3000 products)
    through ``SparqlEngine.query`` on the card; the counts must equal
    ``benchmarks/BENCH_exec.json``;
-5. full scale: LUBM at ``--scale`` universities (default 1000, about 7.6M
+5. full scale: LUBM at ``--scale`` universities (default 1000, about 7.4M
    triples), all 14 LUBM queries in bindings and in count mode, cold and
    warm latency, peak device memory; every count and every binding row is
    held against the port's CPU run of the same query;
+5b. live store at the same scale: the ``benchmarks/bench_update.py``
+   stream (12.5% of the plain triples held back and inserted in 8 batches,
+   a tenth as many deletes; the last batch as SPARQL UPDATE text) into a
+   ``VersionedStore``, the update query mix on the card after each batch;
+   then all 14 queries on the final snapshot, held against the CPU run of
+   that snapshot (counts and rows), a from-scratch rebuild of the final
+   triple set (counts) and the compacted store (counts and sorted rows);
 6. each kernel's wrapper on the largest inputs the main path gave it
-   (phases 4-5), held bit-equal against its plain version and timed beside
+   (phases 4-5b), held bit-equal against its plain version and timed beside
    it with CUDA events, with its byte bound.
 
-The kernels' launch counters are reset just before phase 4 and read just
-after phase 5; a kernel of the path launched no time fails the run.  The
-last lines are the ``kernels`` JSON object, then the device line.  Details
-go to ``chiprun_out/chip_smoke.json``.
+The run drives two paths, each in its own launch-counting window: the
+static path (phases 4-5) and the live path (phase 5b's stream and its
+queries on the final snapshot; its checks against the CPU run, the rebuild
+and the compacted store come after the window closes).  The kernels'
+launch counters are set to 0 just before a window and read just after it; a
+kernel of a path launched no time in that path's window fails the run.  The
+last lines are the ``kernels`` JSON object (``launches`` is the sum of the
+windows, ``launches_by_path`` each window's count), then the device line.
+Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -34,6 +48,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -55,6 +71,16 @@ KERNEL_INFO = {
                         "src/repro/kernels/bitmap_filter.py:27"),
     "signature_filter": ("src/repro_torch/kernels/csrc/signature_filter.cu",
                          "src/repro/kernels/signature_filter.py:35"),
+    "delta_merge": ("src/repro_torch/kernels/csrc/delta_merge.cu",
+                    "src/repro/kernels/delta_merge.py:64"),
+}
+# the kernels each path must launch: the static path has no delta, and in
+# delta mode non-tree joins take edge_exists, never tile_membership
+PATH_KERNELS = {
+    "static": ("expand_filter_compact", "edge_exists", "tile_membership",
+               "bitmap_superset", "signature_filter"),
+    "live": ("expand_filter_compact", "edge_exists", "bitmap_superset",
+             "signature_filter", "delta_merge"),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -93,6 +119,8 @@ class Recorder:
             return (int(args[4].shape[0]), int(args[7]))  # offs rows, cap
         if name in ("signature_filter", "edge_exists"):
             return (int(args[1].shape[0]),)
+        if name == "delta_merge":
+            return (int(args[8].shape[0]),)  # slots
         return (int(args[0].shape[0]),)  # tile_membership, bitmap_superset
 
     def install(self) -> None:
@@ -163,6 +191,26 @@ def bound(torch, ref, name, args, kw) -> tuple[float, float, str]:
         words = min(words, float(nbr.numel()))
         byts = nb(lo) + nb(hi) + nb(tgt) + 4 * words + lo.shape[0]
         ops = 3 * words
+    elif name == "delta_merge":
+        # every slot: the valid byte in, v and ok out.  A valid base slot
+        # also reads j, b_deg, b_start, t_lo, t_hi and about log2(run)
+        # tombstone words; a valid delta slot reads j, b_deg, d_start; and
+        # each distinct base / delta word a valid slot resolves to is read
+        base, delta, tomb, b_start, b_deg, d_start, t_lo, t_hi, j, valid = \
+            args
+        k = j.shape[0]
+        is_base = (j < b_deg) & valid
+        is_delta = (j >= b_deg) & valid
+        n_base, n_delta = int(is_base.sum()), int(is_delta.sum())
+        pb = (b_start + j)[is_base].clamp(0, base.shape[0] - 1)
+        pd = (d_start + j - b_deg)[is_delta].clamp(0, delta.shape[0] - 1)
+        run = (t_hi - t_lo)[is_base].clamp(min=0).double()
+        words = min(torch.ceil(torch.log2(run + 1)).sum().item(),
+                    float(tomb.numel()))
+        byts = (1 + 4 + 1) * k + 5 * 4 * n_base + 3 * 4 * n_delta \
+            + 4 * (torch.unique(pb).numel() + torch.unique(pd).numel()) \
+            + 4 * words
+        ops = 2 * (n_base + n_delta) + 3 * words
     else:  # expand_filter_compact
         nbr, bitmap, start, deg, offs, mask = args[:6]
         cap = int(args[7])
@@ -197,9 +245,8 @@ def max_abs_err(torch, got, want) -> float:
 
 
 def synthetic_checks(torch, ops, ref) -> None:
-    """Phase 3: each kernel against its plain version on small inputs."""
-    import numpy as np
-
+    """Phase 3: each kernel against its plain version on synthetic
+    inputs."""
     rng = np.random.default_rng(0)
     dev = "cuda"
 
@@ -246,6 +293,49 @@ def synthetic_checks(torch, ops, ref) -> None:
             cases.append((f"expand_filter_compact w={w} cap={cap} bid={bid}",
                           lambda args=args: ops.expand_filter_compact(*args),
                           lambda args=args: ref.expand_filter_compact_ref(*args)))
+    def delta_case(k, mb, md, mt, run, mode):
+        """``delta_merge`` inputs: sorted base, tombstones drawn from the
+        base values (hits and misses), 20% invalid slots; ``mode`` makes
+        every slot a base slot, a delta slot, or either."""
+        vmax = max(64, mb // 2)
+        base = np.sort(rng.integers(0, vmax, mb)).astype(np.int32)
+        delta = rng.integers(0, vmax, md).astype(np.int32)
+        tomb = np.sort(base[rng.integers(0, max(mb, 1), mt)] if mb
+                       else np.zeros(mt, np.int32)).astype(np.int32)
+        b_start = rng.integers(0, max(mb, 1), k).astype(np.int32)
+        b_deg = rng.integers(0 if mode == "mixed" else 1, 7, k).astype(np.int32)
+        d_start = rng.integers(0, max(md, 1), k).astype(np.int32)
+        t_lo = rng.integers(0, max(mt, 1), k).astype(np.int32)
+        t_hi = np.minimum(mt, t_lo + rng.integers(0, run, k)).astype(np.int32)
+        j = rng.integers(0, 9, k).astype(np.int32)
+        if mode == "base":
+            j = (j % b_deg).astype(np.int32)
+        elif mode == "delta":
+            j = (j + b_deg).astype(np.int32)
+        valid = torch.from_numpy(rng.random(k) < 0.8).to(dev)
+        arrs = [t(a) for a in (base, delta, tomb, b_start, b_deg, d_start,
+                               t_lo, t_hi, j)]
+        # the plain version sees empty arrays as the wrapper pads them
+        plain = [a if a.shape[0] or i > 2 else
+                 torch.full((1,), -1, dtype=torch.int32, device=dev)
+                 for i, a in enumerate(arrs)]
+        return (*arrs, valid), (*plain, valid)
+
+    for k, mb, md, mt, run, mode, it in (
+            (20000, 50000, 4096, 8000, 8, "mixed", 32),
+            (20000, 50000, 4096, 8000, 8, "base", 32),
+            (20000, 50000, 4096, 8000, 8, "delta", 32),
+            (20000, 50000, 0, 8000, 8, "mixed", 32),     # empty delta
+            (20000, 50000, 4096, 0, 8, "mixed", 32),     # empty tombstones
+            (20000, 50000, 4096, 20000, 2000, "base", 32),  # runs > 256
+            (20000, 50000, 4096, 20000, 2000, "mixed", 8),
+            (1 << 20, 1_500_000, 1 << 14, 200_000, 600, "mixed", 32)):
+        args, pargs = delta_case(k, mb, md, mt, run, mode)
+        cases.append((f"delta_merge k={k} base={mb} delta={md} tomb={mt} "
+                      f"run<{run} {mode} n_iters={it}",
+                      lambda a=args, it=it: ops.delta_merge(*a, n_iters=it),
+                      lambda a=pargs, it=it: ref.delta_merge_ref(
+                          *a, n_iters=it)))
     for label, kern, plain in cases:
         got = kern()
         torch.cuda.synchronize()
@@ -281,11 +371,10 @@ def run_parity(torch, bench: dict) -> dict:
     return out
 
 
-def run_full(torch, ops, scale: int) -> dict:
+def run_full(torch, ops, scale: int):
     """Phase 5: all LUBM queries at full scale on the card, held against
-    the port's CPU run."""
-    import numpy as np
-
+    the port's CPU run.  Returns the phase's record and the generated
+    triple store (phase 5b streams it into a live store)."""
     from repro_torch.core import SparqlEngine
     from repro_torch.rdf.generator import generate_lubm
     from repro_torch.rdf.transform import type_aware_transform
@@ -363,17 +452,262 @@ def run_full(torch, ops, scale: int) -> dict:
     info["cpu_checked"] = list(LUBM_QUERIES)
     log(f"phase 5: all {len(LUBM_QUERIES)} counts and rows equal the CPU "
         f"run; peak device memory {info['peak_device_bytes']} B")
-    return info
+    return info, st
 
 
-def kernel_table(torch, ops, ref, rec: Recorder, launches: dict) -> list:
-    """Phase 6: each kernel at the main path's largest shapes."""
+LIVE_MIX = ("Q1", "Q2", "Q6", "Q9", "Q14")  # benchmarks/bench_update.py
+
+
+def _sub_store(st, rows):
+    """A finalized TripleStore of ``st``'s rows ``rows`` (sorted, so still
+    deduplicated and in order), sharing ``st``'s dictionary."""
+    from repro_torch.rdf.triples import TripleStore
+
+    rows = np.sort(rows)
+    return TripleStore(dict=st.dict, s=st.s[rows], p=st.p[rows],
+                       o=st.o[rows], _finalized=True)
+
+
+def _decode(st, rows):
+    d = st.dict
+    return [(d.term(int(st.s[i])), d.predicate(int(st.p[i])),
+             d.term(int(st.o[i]))) for i in rows]
+
+
+# a chunk program may be new on a later snapshot only where its key
+# (``repro_torch.core.exec.ProgramKey``) moved in one of these fields
+NEW_PROGRAM_WHY = {"caps": "capacities", "n_in": "input width",
+                   "graph": "device graph key (pad bucket)"}
+RESUME_WHY = {"table_input": "step window (overflow resume)",
+              "start": "step window (overflow resume)",
+              "stop": "step window (overflow resume)"}
+
+
+def _new_programs(before: set, after: set, resumed: bool, what: str) -> list:
+    """Why the chunk programs built between two reads of the executor's
+    program keys are new: for each, the key fields in which it differs from
+    the nearest program built before for the same plan and mode.  A field
+    outside ``NEW_PROGRAM_WHY`` (or ``RESUME_WHY`` when the query resumed
+    after an overflow) fails the run."""
+    allowed = NEW_PROGRAM_WHY | (RESUME_WHY if resumed else {})
+    why = set()
+    for key in after - before:
+        peers = [o for o in before
+                 if o.plan == key.plan and o.collect == key.collect]
+        check(bool(peers), f"{what}: a chunk program for a plan never run")
+        diff = min((frozenset(f for f in key._fields
+                              if getattr(key, f) != getattr(o, f))
+                    for o in peers), key=len)
+        check(bool(diff) and diff <= allowed.keys(),
+              f"{what}: a new chunk program whose key moved in "
+              f"{sorted(diff)}")
+        why |= {allowed[f] for f in diff}
+    return sorted(why)
+
+
+def run_live(torch, ops, st, scale: int) -> dict:
+    """Phase 5b: the live store at full scale.  The stream follows
+    ``benchmarks/bench_update.py:_dataset`` (seed 5) at the id level: the
+    base keeps every rdf:type / rdf:subClassOf triple and 87.5% of the
+    others; the other 12.5% arrive as inserts in 8 batches with a tenth as
+    many deletes of base triples, so the final delta sits near half the
+    store's auto-compaction threshold (25% of base edges).  Returns the
+    phase's record and ``finish``, which holds the final snapshot against
+    the CPU run, the rebuild and the compacted store (outside the live
+    path's launch window)."""
+    from repro_torch.core import SparqlEngine
+    from repro_torch.rdf.dictionary import RDF_TYPE, RDFS_SUBCLASSOF
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+    from repro_torch.store import VersionedStore, parse_update
+
+    t0 = time.perf_counter()
+    d = st.dict
+    onto = np.isin(st.p, [d.predicate_id(RDF_TYPE),
+                          d.predicate_id(RDFS_SUBCLASSOF)])
+    plain = np.flatnonzero(~onto)
+    rng = np.random.default_rng(5)
+    idx = rng.permutation(plain.shape[0])
+    n_base = int(plain.shape[0] * (1.0 - 0.125))
+    base_rows = np.concatenate([np.flatnonzero(onto), plain[idx[:n_base]]])
+    ins_rows = plain[idx[n_base:]]
+    del_rows = plain[idx[rng.choice(n_base, size=max(1, len(ins_rows) // 10),
+                                    replace=False)]]
+    ins, dels = _decode(st, ins_rows), _decode(st, del_rows)
+    g, maps = type_aware_transform(_sub_store(st, base_rows))
+    info = {"scale": scale, "base_triples": int(base_rows.shape[0]),
+            "inserts": len(ins), "deletes": len(dels),
+            "base_edges": int(g.n_edges), "setup_s": time.perf_counter() - t0}
+    log(f"phase 5b: live store base {info['base_triples']} triples "
+        f"({g.n_edges} edges), stream {len(ins)} inserts + {len(dels)} "
+        f"deletes in 8 batches")
+
+    def timed(fn):
+        s_ = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - s_) * 1e3
+
+    store = VersionedStore(g, maps)
+    eng = SparqlEngine(store.snapshot(), maps)
+
+    batches = []
+    n_b = 8
+    for b in range(n_b + 1):
+        rec = {"batch": b}
+        if b:
+            bi = ins[(b - 1) * len(ins) // n_b: b * len(ins) // n_b]
+            bd = dels[(b - 1) * len(dels) // n_b: b * len(dels) // n_b]
+            s_ = time.perf_counter()
+            if b < n_b:
+                rec["inserted"] = store.insert_triples(bi)
+                rec["deleted"] = store.delete_triples(bd)
+                rec["writes_ms"] = (time.perf_counter() - s_) * 1e3
+            else:  # the last batch goes through the SPARQL UPDATE parser
+                text = ("INSERT DATA { " + " ".join(
+                    f"{x} {y} {z} ." for x, y, z in bi) + " } DELETE DATA { "
+                    + " ".join(f"{x} {y} {z} ." for x, y, z in bd) + " }")
+                t_p = time.perf_counter()
+                parsed = parse_update(text)
+                rec["parse_ms"] = (time.perf_counter() - t_p) * 1e3
+                check([op.triples for op in parsed] == [bi, bd],
+                      "UPDATE text does not parse back to its triples")
+                out = store.apply_update(text)
+                rec["writes_ms"] = (time.perf_counter() - s_) * 1e3
+                check(not out["compacted"], "the stream crossed the "
+                      "auto-compaction threshold")
+                rec["inserted"], rec["deleted"] = out["inserted"], \
+                    out["deleted"]
+            t_s = time.perf_counter()
+            snap = store.snapshot()
+            rec["snapshot_ms"] = (time.perf_counter() - t_s) * 1e3
+            eng.set_graph(snap)
+            rec["ingest_ms"] = (time.perf_counter() - s_) * 1e3
+            check(rec["inserted"] == len(bi) and rec["deleted"] == len(bd),
+                  f"batch {b}: applied {rec['inserted']} inserts / "
+                  f"{rec['deleted']} deletes of {len(bi)} / {len(bd)}")
+        rec["delta"] = store.delta_size()
+        rec["queries"] = {}
+        for name in LIVE_MIX:
+            keys = eng.executor.program_keys()
+            res, ms = timed(lambda: eng.query(LUBM_QUERIES[name]))
+            base = [br["base"] for br in res.stats["exec"]["branches"]]
+            compiles = sum(x.get("compiles", 0) for x in base)
+            resumes = sum(x.get("resumes", 0) for x in base)
+            rec["queries"][name] = {"count": int(res.count), "ms": ms,
+                                    "compiles": compiles,
+                                    "resumes": resumes,
+                                    "kernels": base[0].get("step_kernels")}
+            if b >= 2 and compiles:
+                why = _new_programs(keys, eng.executor.program_keys(),
+                                    resumes > 0, f"batch {b} {name}")
+                rec["queries"][name]["new_programs_why"] = why
+                log(f"  batch {b} {name}: {compiles} new chunk programs: "
+                    f"{', '.join(why)}")
+        batches.append(rec)
+        log(f"  batch {b}: ingest {rec.get('ingest_ms', 0.0):.1f} ms (writes "
+            f"{rec.get('writes_ms', 0.0):.1f}, snapshot "
+            f"{rec.get('snapshot_ms', 0.0):.1f}), delta "
+            f"{rec['delta']}, " + ", ".join(
+                f"{n} {q['count']} in {q['ms']:.1f} ms"
+                for n, q in rec["queries"].items()))
+    info["batches"] = batches
+
+    # the final snapshot: every query, cold and warm, both modes
+    snap = store.snapshot()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    queries, gpu_rows = {}, {}
+    for name, q in LUBM_QUERIES.items():
+        res, cold = timed(lambda: eng.query(q))
+        before = dict(ops.launches)
+        warm = []
+        for _ in range(3):
+            r2, ms = timed(lambda: eng.query(q))
+            warm.append(ms)
+            check(r2.count == res.count and np.array_equal(r2.rows, res.rows),
+                  f"live {name}: warm run differs from cold run")
+        per_query = {k: (ops.launches[k] - before[k]) // 3 for k in before}
+        cres, count_cold = timed(lambda: eng.query(q, collect="count"))
+        count_warm = []
+        for _ in range(3):
+            c2, ms = timed(lambda: eng.query(q, collect="count"))
+            count_warm.append(ms)
+            check(c2.count == cres.count, f"live {name}: count run differs")
+        check(cres.count == res.count,
+              f"live {name}: count mode {cres.count} != bindings {res.count}")
+        check(res.rows.shape == (res.count, len(res.variables)) and bool(
+            ((res.rows >= -1) & (res.rows < snap.n_vertices)).all()),
+            f"live {name}: rows of the wrong shape or range")
+        gpu_rows[name] = res.rows
+        queries[name] = {
+            "count": int(res.count), "cold_ms": cold,
+            "warm_ms": sorted(warm)[1], "count_cold_ms": count_cold,
+            "count_warm_ms": sorted(count_warm)[1],
+            "launches_per_query": per_query,
+            "kernels": [br["base"].get("step_kernels")
+                        for br in res.stats["exec"]["branches"]]}
+        log(f"  live {name}: count {res.count} cold {cold:.1f} ms warm "
+            f"{sorted(warm)[1]:.1f} ms count-mode warm "
+            f"{sorted(count_warm)[1]:.1f} ms launches {per_query}")
+    info["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    info["queries"] = queries
+    info["stream_s"] = time.perf_counter() - t0
+
+    def finish() -> None:
+        # held against the CPU run of the same snapshot: counts and rows
+        t1 = time.perf_counter()
+        cpu = SparqlEngine(snap, maps, device="cpu")
+        for name, q in LUBM_QUERIES.items():
+            want = cpu.query(q)
+            check(want.count == queries[name]["count"] and
+                  np.array_equal(want.rows, gpu_rows[name]),
+                  f"live {name}: card answer differs from the CPU run")
+        info["cpu_check_s"] = time.perf_counter() - t1
+
+        # held against a from-scratch transform of the final triple set
+        t2 = time.perf_counter()
+        keep = base_rows[~np.isin(base_rows, del_rows)]
+        g2, maps2 = type_aware_transform(
+            _sub_store(st, np.concatenate([keep, ins_rows])))
+        fresh = SparqlEngine(g2, maps2)
+        for name, q in LUBM_QUERIES.items():
+            n = fresh.count(q)
+            check(n == queries[name]["count"],
+                  f"live {name}: snapshot count {queries[name]['count']} "
+                  f"!= rebuild count {n}")
+        info["rebuild_check_s"] = time.perf_counter() - t2
+
+        # held against the compacted store (ids survive compaction)
+        t3 = time.perf_counter()
+        eng.set_graph(store.compact())
+        info["compact_s"] = time.perf_counter() - t3
+        for name, q in LUBM_QUERIES.items():
+            res = eng.query(q)
+            check(res.count == queries[name]["count"] and np.array_equal(
+                np.sort(res.rows, axis=0), np.sort(gpu_rows[name], axis=0)),
+                f"live {name}: compacted answer differs from the snapshot's")
+        info["compacted_check_s"] = time.perf_counter() - t3
+        info["total_s"] = time.perf_counter() - t0
+        log(f"phase 5b: all {len(LUBM_QUERIES)} queries on the final "
+            f"snapshot equal the CPU run (rows), the rebuild (counts) and the "
+            f"compacted store (rows); peak device memory "
+            f"{info['peak_device_bytes']} B; {info['total_s']:.1f} s")
+
+    return info, finish
+
+
+def kernel_table(torch, ops, ref, rec: Recorder,
+                 by_path: dict[str, dict]) -> list:
+    """Phase 6: each kernel at the main path's largest shapes.
+    ``by_path`` holds each path's launch counts."""
     plains = {
         "expand_filter_compact": ref.expand_filter_compact_ref,
         "edge_exists": ref.edge_exists_ref,
         "tile_membership": ref.tile_membership_ref,
         "bitmap_superset": ref.bitmap_superset_ref,
         "signature_filter": ref.signature_filter_ref,
+        "delta_merge": ref.delta_merge_ref,
     }
     table = []
     for name in ops.KERNELS:
@@ -388,10 +722,15 @@ def kernel_table(torch, ops, ref, rec: Recorder, launches: dict) -> list:
         ms = time_ms(torch, lambda: kern(*args, **kw))
         plain_ms = time_ms(torch, lambda: plains[name](*args, **kw))
         byts, nops, by = bound(torch, ref, name, args, kw)
+        if name == "delta_merge":  # slots, then the valid ones
+            rows = (*rows, int(args[9].sum().item()))
         source, replaces = KERNEL_INFO[name]
         table.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": int(launches[name]),
+            "replaces": replaces,
+            "launches": sum(int(c[name]) for c in by_path.values()),
+            "launches_by_path": {p: int(c[name])
+                                 for p, c in by_path.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(byts / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3,
             "bound_by": by, "library_ms": None,
@@ -443,27 +782,41 @@ def main(argv=None) -> int:
     bench = json.loads((ROOT / "benchmarks" / "BENCH_exec.json")
                        .read_text())["results"]
     rec = Recorder(ops)
-    rec.install()
-    ops.reset_launches()
-    parity = run_parity(torch, bench)
-    full = run_full(torch, ops, args.scale)
-    launches = dict(ops.launches)
-    rec.remove()
-    log(f"main path launches: {launches}")
-    for name in ops.KERNELS:
-        check(launches[name] > 0, f"{name} was never launched on the main path")
+    by_path: dict[str, dict] = {}
 
-    table = kernel_table(torch, ops, ref, rec, launches)
+    def window(path: str, drive):
+        """Drive one path with the launch counters set to 0 just before and
+        read just after; each kernel of the path must have launched."""
+        rec.install()
+        ops.reset_launches()
+        out = drive()
+        by_path[path] = dict(ops.launches)
+        rec.remove()
+        log(f"{path} path launches: {by_path[path]}")
+        for name in PATH_KERNELS[path]:
+            check(by_path[path][name] > 0,
+                  f"{name} was never launched on the {path} path")
+        return out
+
+    parity, (full, st) = window("static", lambda: (
+        run_parity(torch, bench), run_full(torch, ops, args.scale)))
+    live, finish = window("live", lambda: run_live(torch, ops, st,
+                                                   args.scale))
+    finish()
+    del st, finish
+
+    table = kernel_table(torch, ops, ref, rec, by_path)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "ptxas": ptxas, "parity": parity, "full": full,
+              "ptxas": ptxas, "parity": parity, "full": full, "live": live,
               "kernels": table,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {

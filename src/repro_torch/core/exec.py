@@ -1,4 +1,4 @@
-"""Vectorized e-graph-homomorphism executor on PyTorch (static graphs).
+"""Vectorized e-graph-homomorphism executor on PyTorch.
 
 The port of ``repro.core.exec``: a breadth-first *binding table* pipeline
 that expands a table of partial embeddings ``B int32[capacity, |V(q)|]``
@@ -15,9 +15,12 @@ step whose expansion exceeds its capacity *freezes* the chunk (the table is
 carried unchanged through the later steps and the program reports the
 overflowing step), and the host resumes from exactly that step with its
 capacity doubled.  Steps with no non-tree checks run through the fused
-expand/filter/compact kernel.  Kernels dispatch by the tensors' device
-(:mod:`repro_torch.kernels.ops`): on CUDA the hand-written Hopper kernels,
-on the CPU their plain versions.
+expand/filter/compact kernel.  On a live-store snapshot, a tree step whose
+direction carries a delta resolves its slots through ``delta_merge`` (base
+CSR slice ++ delta slice, tombstones masked) instead, and non-tree joins
+probe the base, tombstone and insert CSRs.  Kernels dispatch by the
+tensors' device (:mod:`repro_torch.kernels.ops`): on CUDA the hand-written
+Hopper kernels, on the CPU their plain versions.
 
 Nothing inside a chunk program reads a device value back to the host:
 compaction is a cumsum-position scatter, and every per-step counter goes
@@ -25,8 +28,9 @@ into one packed int64 vector that the host reads once per chunk program,
 after the next chunk has been enqueued (``ExecOpts.async_chunks``).
 
 Bitmaps, masks and signatures live on the device as int32 bit patterns of
-the reference's uint32 words (converted in :meth:`DeviceGraph.from_graph`
-and :func:`_plan_arrays` only).
+the reference's uint32 words (converted where they are uploaded:
+:meth:`DeviceGraph.from_graph`, the plan arrays and the snapshot's device
+tensors).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -108,13 +112,54 @@ class DeviceGraph:
     # per-edge-label max degree (host, for the +INT tile decision)
     max_deg_out_el: np.ndarray = field(default=None)  # type: ignore[assignment]
     max_deg_in_el: np.ndarray = field(default=None)  # type: ignore[assignment]
+    # --- live-store (snapshot) mode ---------------------------------------
+    # delta_mode=True: ``arrays`` holds only the *base* graph; the merged
+    # label bitmap / numeric column and all delta CSRs flow in per call via
+    # the step arrays, so chunk programs are reused across snapshots of the
+    # same base.  ``pad_vertices`` is the pow2-padded vertex bound every
+    # per-vertex gather is sized/clamped to (stable across snapshots until
+    # the vertex count crosses the bucket); ``base_vertices`` /
+    # ``base_elabels`` bound the base-CSR id spaces.
+    delta_mode: bool = False
+    base_vertices: int = 0
+    base_elabels: int = 0
+    pad_vertices: int = 0
 
     def key(self) -> tuple:
-        """Identity for the chunk-program cache, as in the reference
-        (``(delta_mode, pad_vertices, base_vertices, n_elabels,
-        max_log_deg)``; a static graph pads nothing)."""
-        return (False, self.n_vertices, self.n_vertices, self.n_elabels,
-                self.max_log_deg)
+        """Identity for the chunk-program cache, as in the reference.  The
+        *logical* vertex count is absent in snapshot mode: programs depend
+        only on the pow2-padded bound, so growing the vertex set inside one
+        pad bucket keeps every chunk program."""
+        return (self.delta_mode, self.pad_vertices,
+                self.base_vertices, self.n_elabels, self.max_log_deg)
+
+    @staticmethod
+    def from_snapshot(snap, with_nlf: bool = False, with_prune: bool = False,
+                      device="cuda") -> "DeviceGraph":
+        """Device view of a live-store snapshot: the base graph's arrays
+        (cached on the base per ``(with_nlf, with_prune, device)``, shared
+        by successive snapshots) plus snapshot-mode metadata.  Delta arrays
+        are not uploaded here: they are per-plan step inputs (see
+        ``Executor._snapshot_arrays``)."""
+        device = resolve_device(device)
+        want = (bool(with_nlf), bool(with_prune), device)
+        cache = snap.base.__dict__.setdefault("_device_graphs_torch", {})
+        base_dg = cache.get(want)
+        if base_dg is None:
+            base_dg = DeviceGraph.from_graph(snap.base, with_nlf=with_nlf,
+                                             with_prune=with_prune,
+                                             device=device)
+            cache[want] = base_dg
+        return replace(
+            base_dg,
+            n_vertices=snap.n_vertices,
+            n_elabels=snap.n_elabels,
+            max_log_deg=32,  # safe bound: merged degrees are unbounded
+            delta_mode=True,
+            base_vertices=snap.base.n_vertices,
+            base_elabels=snap.base.n_elabels,
+            pad_vertices=_next_pow2(max(snap.n_vertices, 8)),
+        )
 
     @staticmethod
     def from_graph(g: LabeledGraph, with_nlf: bool = False,
@@ -169,6 +214,9 @@ class DeviceGraph:
             device=device,
             max_deg_out_el=mdo,
             max_deg_in_el=mdi,
+            base_vertices=g.n_vertices,
+            base_elabels=g.n_elabels,
+            pad_vertices=g.n_vertices,
         )
 
 
@@ -291,7 +339,7 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _nontree_mask(dg: DeviceGraph, step: Step, sarr, b_rows, p_rows, v_new,
                   opts: ExecOpts) -> torch.Tensor:
-    n = dg.n_vertices
+    n = dg.pad_vertices if dg.delta_mode else dg.n_vertices
     ok = torch.ones(v_new.shape[0], dtype=torch.bool, device=v_new.device)
     for ci, c in enumerate(step.nontree):
         use_out = c.forward or c.self_loop
@@ -301,17 +349,60 @@ def _nontree_mask(dg: DeviceGraph, step: Step, sarr, b_rows, p_rows, v_new,
         if c.pvar_idx >= 0:
             el_raw = p_rows[:, c.pvar_idx]
             bound_ok = el_raw >= 0
-            flat = sarr[f"nt{ci}_flat"]
-            base = el_raw.clamp(0, dg.n_elabels - 1) * (n + 1)
-            lo = flat[base + psafe]
-            hi = flat[base + psafe + 1]
-            found = kops.edge_exists(nbr, lo, hi, v_new,
-                                     n_iters=dg.max_log_deg)
+            if dg.delta_mode:
+                # base flat tables cover the base id spaces only; probes or
+                # labels born in the delta have no base edges by definition
+                in_base = (probe < dg.base_vertices) & \
+                    (el_raw < dg.base_elabels)
+                pb = probe.clamp(0, dg.base_vertices - 1)
+                el_b = el_raw.clamp(0, dg.base_elabels - 1)
+                flat = sarr[f"nt{ci}_flat"]
+                bi = el_b * (dg.base_vertices + 1) + pb
+                found = kops.edge_exists(nbr, flat[bi], flat[bi + 1], v_new,
+                                         n_iters=dg.max_log_deg) & in_base
+                fi = el_raw.clamp(0, dg.n_elabels - 1) * (n + 1) + psafe
+                tf = sarr.get(f"nt{ci}_t_flat_iptr")
+                if tf is not None:
+                    dead = kops.edge_exists(
+                        sarr[f"nt{ci}_t_flat_nbr"], tf[fi], tf[fi + 1],
+                        v_new, n_iters=dg.max_log_deg)
+                    found = found & ~dead
+                df = sarr.get(f"nt{ci}_d_flat_iptr")
+                if df is not None:
+                    found = found | kops.edge_exists(
+                        sarr[f"nt{ci}_d_flat_nbr"], df[fi], df[fi + 1],
+                        v_new, n_iters=dg.max_log_deg)
+            else:
+                flat = sarr[f"nt{ci}_flat"]
+                base = el_raw.clamp(0, dg.n_elabels - 1) * (n + 1)
+                lo = flat[base + psafe]
+                hi = flat[base + psafe + 1]
+                found = kops.edge_exists(nbr, lo, hi, v_new,
+                                         n_iters=dg.max_log_deg)
             ok = ok & found & bound_ok
             continue
         iptr = sarr[f"nt{ci}_iptr"]
         lo = iptr[psafe]
         hi = iptr[psafe + 1]
+        if dg.delta_mode:
+            # base membership (padded rows: zero-degree past the base id
+            # spaces), minus tombstones, plus delta inserts; +INT tiles only
+            # cover the base CSR, so delta mode always searches
+            found = kops.edge_exists(nbr, lo, hi, v_new,
+                                     n_iters=dg.max_log_deg)
+            ti = sarr.get(f"nt{ci}_t_iptr")
+            if ti is not None:
+                dead = kops.edge_exists(sarr[f"nt{ci}_t_nbr"], ti[psafe],
+                                        ti[psafe + 1], v_new,
+                                        n_iters=dg.max_log_deg)
+                found = found & ~dead
+            di = sarr.get(f"nt{ci}_d_iptr")
+            if di is not None:
+                found = found | kops.edge_exists(
+                    sarr[f"nt{ci}_d_nbr"], di[psafe], di[psafe + 1], v_new,
+                    n_iters=dg.max_log_deg)
+            ok = ok & found
+            continue
         max_deg = int(
             (dg.max_deg_out_el if use_out else dg.max_deg_in_el)[c.elabel]
         )
@@ -358,6 +449,22 @@ def _cmp(vals: torch.Tensor, op: str, c: float) -> torch.Tensor:
     raise ValueError(op)
 
 
+class ProgramKey(NamedTuple):
+    """A chunk program's identity, as the reference keys its compile cache:
+    the plan, the step window and its capacities, the input width, and the
+    options' and device graph's keys.  The delta arrays' sizes are not in
+    it: an eager program takes any size."""
+    plan: Any
+    caps: tuple
+    n_in: int
+    table_input: bool
+    collect: str
+    start: int
+    stop: int
+    opts: tuple
+    graph: tuple
+
+
 def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
                    n_in: int, opts: ExecOpts, table_input: bool,
                    collect: str = "bindings", start_step: int = 0,
@@ -388,8 +495,9 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
     steps = plan.steps
     n_steps = len(steps)
     stop = n_steps if stop_step is None else stop_step
+    dmode = dg.delta_mode
     has_numeric = "numeric_value" in dg.arrays
-    n = dg.n_vertices
+    n = dg.pad_vertices if dmode else dg.n_vertices
     arrays = dg.arrays
     for si in range(start_step, stop):
         prev = n_in if si == start_step else caps[si - 1]
@@ -423,23 +531,37 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
             active = ovf_step == n_steps
             alive = torch.arange(cap_prev, dtype=I32, device=dev) < count
 
+            # delta overlay per-step inputs (snapshot mode only)
+            d_iptr = sarr.get("d_iptr") if dmode else None
+            t_iptr = sarr.get("t_iptr") if dmode else None
+            start_d = deg_b = t_lo = t_hi = None
             if step.restart_candidates is not None:
                 deg = torch.where(alive, sarr["restart_n"], 0)
                 nbr_src = sarr["restart"]
                 start = torch.zeros(cap_prev, dtype=I32, device=dev)
+                d_iptr = t_iptr = None
             else:
                 if step.elabel >= 0:
                     iptr = sarr["iptr"]
                     nbr_src = arrays["out_nbr_el" if step.forward
                                      else "in_nbr_el"]
                 else:  # predicate variable: plain CSR
-                    iptr = arrays["out_indptr_all" if step.forward
-                                  else "in_indptr_all"]
+                    iptr = sarr["all_iptr"] if dmode else \
+                        arrays["out_indptr_all" if step.forward
+                               else "in_indptr_all"]
                     nbr_src = arrays["out_nbr_all" if step.forward
                                      else "in_nbr_all"]
                 vp = b[:, step.parent].clamp(0, n - 1)
                 start = iptr[vp]
-                deg = torch.where(alive, iptr[vp + 1] - start, 0)
+                deg_b = iptr[vp + 1] - start
+                deg = deg_b
+                if d_iptr is not None:
+                    start_d = d_iptr[vp]
+                    deg = deg + (d_iptr[vp + 1] - start_d)
+                if t_iptr is not None:
+                    t_lo, t_hi = t_iptr[vp], t_iptr[vp + 1]
+                deg = torch.where(alive, deg, 0)
+            merged = d_iptr is not None or t_iptr is not None
 
             # int64 prefix sums: the total cannot wrap, so an oversized
             # expansion is always reported as overflow
@@ -451,11 +573,13 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
             ovf_step = torch.where(ovf_here, si, ovf_step)
             count_only = collect == "count" and si == n_steps - 1
 
-            bitmap_src = arrays["label_bitmap"]
+            bitmap_src = sarr.get("bitmap") if dmode \
+                else arrays["label_bitmap"]
             p_in = p_out = None
-            if _fused_eligible(step, opts) and not count_only:
+            if _fused_eligible(step, opts) and not count_only and not merged:
                 fmask = sarr.get("fmask")
-                fb_src = arrays.get("filter_bitmap") \
+                fb_src = (sarr.get("filter_bitmap") if dmode
+                          else arrays.get("filter_bitmap")) \
                     if fmask is not None else None
                 if fmask is not None and fb_src is not None:
                     # composed label + signature probe: one superset test
@@ -485,9 +609,32 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
                 count = torch.where(keep_new, kept, count)
             else:
                 row, j, valid = kops.ragged_expand(offs, deg, cap)
-                idx = (start[row] + j).clamp(0, nbr_src.shape[0] - 1)
-                v_new = torch.where(valid, nbr_src[idx], -1)
-                ok = valid
+                el_new = None
+                if merged:
+                    # live store: position j < deg_b reads the base CSR
+                    # (minus tombstones), later positions read the delta
+                    zero = torch.zeros_like(row)
+                    sd = start_d[row] if start_d is not None else zero
+                    tl = t_lo[row] if t_lo is not None else zero
+                    th = t_hi[row] if t_hi is not None else zero
+                    d_nbr = sarr.get("d_nbr")
+                    if step.elabel >= 0:
+                        v_new, ok = kops.delta_merge(
+                            nbr_src, d_nbr, sarr.get("t_nbr"),
+                            start[row], deg_b[row], sd, tl, th, j, valid,
+                            n_iters=dg.max_log_deg)
+                    else:
+                        lab_src = arrays["out_lab_all" if step.forward
+                                         else "in_lab_all"]
+                        v_new, el_new, ok = kops.delta_merge_labeled(
+                            nbr_src, lab_src, d_nbr,
+                            sarr.get("d_lab"), sarr.get("t_key"),
+                            start[row], deg_b[row], sd, tl, th, j, valid,
+                            n_elabels=dg.n_elabels, n_iters=dg.max_log_deg)
+                else:
+                    idx = (start[row] + j).clamp(0, nbr_src.shape[0] - 1)
+                    v_new = torch.where(valid, nbr_src[idx], -1)
+                    ok = valid
 
                 b_rows = b[row]
                 p_rows = p[row]
@@ -495,9 +642,10 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
                 b_rows[:, step.u] = v_new
 
                 if step.pvar_idx >= 0:  # tree-edge M_e binding
-                    lab_src = arrays["out_lab_all" if step.forward
-                                     else "in_lab_all"]
-                    el_new = torch.where(valid, lab_src[idx], -1)
+                    if el_new is None:
+                        lab_src = arrays["out_lab_all" if step.forward
+                                         else "in_lab_all"]
+                        el_new = torch.where(valid, lab_src[idx], -1)
                     prev = p_rows[:, step.pvar_idx].clone()
                     ok = ok & ((prev < 0) | (prev == el_new))
                     p_rows[:, step.pvar_idx] = torch.where(prev < 0, el_new,
@@ -509,23 +657,30 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
                     ok = ok & kops.bitmap_superset(bitmap_src[vsafe],
                                                    sarr["label_mask"])
                 sig_mask = sarr.get("sig_mask")
-                sig_src = arrays.get("sig") if sig_mask is not None else None
+                sig_src = (sarr.get("sig") if dmode else arrays.get("sig")) \
+                    if sig_mask is not None else None
                 if sig_src is not None:
                     p_in = ok.sum(dtype=I32)
                     ok = ok & kops.signature_filter(sig_src, vsafe, sig_mask)
                     p_out = ok.sum(dtype=I32)
-                if step.min_out_ntypes or step.min_in_ntypes:
+                if (step.min_out_ntypes or step.min_in_ntypes) and not dmode:
+                    # degree/NLF prunes use base-build summaries that no
+                    # delta maintains, so snapshots skip them (they are pure
+                    # optimizations)
                     ok = ok & (arrays["out_degree"][vsafe]
                                >= step.min_out_ntypes)
                     ok = ok & (arrays["in_degree"][vsafe]
                                >= step.min_in_ntypes)
-                if "nlf_out_mask" in sarr and "nlf_out" in arrays:
+                if "nlf_out_mask" in sarr and "nlf_out" in arrays \
+                        and not dmode:
                     ok = ok & kops.bitmap_superset(arrays["nlf_out"][vsafe],
                                                    sarr["nlf_out_mask"])
                     ok = ok & kops.bitmap_superset(arrays["nlf_in"][vsafe],
                                                    sarr["nlf_in_mask"])
-                if step.num_filters and has_numeric:
-                    vals = arrays["numeric_value"][vsafe]
+                num_src = sarr.get("numeric") if dmode else (
+                    arrays["numeric_value"] if has_numeric else None)
+                if step.num_filters and num_src is not None:
+                    vals = num_src[vsafe]
                     for op, cval in step.num_filters:
                         ok = ok & _cmp(vals, op, cval)
                 if opts.semantics == "iso":
@@ -634,9 +789,13 @@ def _empty_stats(n_steps: int) -> dict[str, Any]:
     }
 
 
-def _step_kernel_name(step: Step, opts: ExecOpts, count_only: bool) -> str:
+def _step_kernel_name(dg: DeviceGraph, step: Step, sarr: dict,
+                      opts: ExecOpts, count_only: bool) -> str:
     """Which kernel a step runs through — mirrors the dispatch in
-    ``build_chunk_fn`` (fused fast path vs. ragged expand)."""
+    ``build_chunk_fn`` (fused fast path vs. ragged expand vs. live-store
+    delta merge)."""
+    if dg.delta_mode and ("d_iptr" in sarr or "t_iptr" in sarr):
+        return "delta_merge" if step.elabel >= 0 else "delta_merge_labeled"
     if _fused_eligible(step, opts) and not count_only:
         return "expand_filter"
     return "ragged_expand"
@@ -655,29 +814,86 @@ class Executor:
     schedule, suffix-resume on overflow, in-flight chunk dispatch, a
     per-plan chunk-program cache, and the transient-fault ladder.
 
-    ``device`` defaults to ``"cuda"`` and raises without CUDA; pass
-    ``"cpu"`` to run the kernels' plain versions."""
+    ``g`` may be a plain :class:`LabeledGraph` or a live-store
+    :class:`~repro_torch.store.versioned.Snapshot`.  In snapshot mode the
+    base graph's device arrays are shared across snapshots, delta CSRs flow
+    in per call through the step arrays (so chunk programs survive
+    updates), and start / restart candidate sets are re-resolved against
+    the current snapshot, which also makes plans built against an older
+    version execute correctly.
 
-    def __init__(self, g, opts: ExecOpts | None = None, *, device="cuda"):
-        if getattr(g, "is_snapshot", False):
-            raise NotImplementedError(
-                "live-store snapshots are not ported yet")
+    ``device`` defaults to ``"cuda"`` and raises without CUDA; pass
+    ``"cpu"`` to run the kernels' plain versions.  ``policy`` / ``breaker``
+    carry a previous executor's retry policy and learned degradations
+    into a rebuilt one (the engine rebuilds after a compaction)."""
+
+    def __init__(self, g, opts: ExecOpts | None = None, *, device="cuda",
+                 policy: RetryPolicy | None = None,
+                 breaker: DegradationBreaker | None = None):
         self.opts = opts or ExecOpts()
         self.device = resolve_device(device)
-        self._policy = RetryPolicy.from_env()
-        self._breaker = DegradationBreaker(cooldown_s=self._policy.cooldown_s)
+        self._policy = policy or RetryPolicy.from_env()
+        self._breaker = breaker or DegradationBreaker(
+            cooldown_s=self._policy.cooldown_s)
         self._res_counters = {"degraded_runs": 0, "fault_retries": 0,
                               "escalations": 0}
-        self.graph = g
-        self.dg = DeviceGraph.from_graph(g, with_nlf=self.opts.use_nlf,
-                                         with_prune=self.opts.use_prune,
-                                         device=self.device)
-        self._compiled: dict[tuple, Any] = {}
+        if getattr(g, "is_snapshot", False):
+            view = g
+            self.graph = g.base
+            dg = DeviceGraph.from_snapshot(g, with_nlf=self.opts.use_nlf,
+                                           with_prune=self.opts.use_prune,
+                                           device=self.device)
+        else:
+            view = None
+            self.graph = g
+            dg = DeviceGraph.from_graph(g, with_nlf=self.opts.use_nlf,
+                                        with_prune=self.opts.use_prune,
+                                        device=self.device)
+        # (view, dg) swap together in one tuple assignment, so a query that
+        # pinned the pair mid-update stays on one version
+        self._state: tuple[Any, DeviceGraph] = (view, dg)
+        self._compiled: dict[ProgramKey, Any] = {}
         # learned per-plan capacity schedules (overflow doublings persist,
         # so later chunks / queries start right-sized)
         self._caps_cache: dict[tuple, list[int]] = {}
         # learned pipelined-vs-legacy choice for small plans (_small_plan)
         self._small_mode: dict[tuple, bool] = {}
+
+    @property
+    def view(self):
+        return self._state[0]
+
+    @property
+    def dg(self) -> DeviceGraph:
+        return self._state[1]
+
+    def pin(self) -> tuple[Any, DeviceGraph]:
+        """Capture the current (view, dg) pair.  Callers composing several
+        ``run`` calls into one logical query pass it to each, so a
+        concurrent ``set_snapshot`` cannot tear the query across
+        versions."""
+        return self._state
+
+    def set_snapshot(self, snap) -> None:
+        """Swap to a newer snapshot of the *same* base graph.  Chunk
+        programs are reused (only the delta step arrays change); in-flight
+        queries keep executing against the state they pinned."""
+        if self.view is None or snap.base is not self.graph:
+            raise ValueError("snapshot has a different base graph; "
+                             "build a new Executor")
+        self._state = (snap,
+                       DeviceGraph.from_snapshot(
+                           snap, with_nlf=self.opts.use_nlf,
+                           with_prune=self.opts.use_prune,
+                           device=self.device))
+
+    @property
+    def policy(self) -> RetryPolicy:
+        return self._policy
+
+    @property
+    def breaker(self) -> DegradationBreaker:
+        return self._breaker
 
     def resilience_snapshot(self) -> dict:
         """Breaker state + fault counters."""
@@ -685,27 +901,35 @@ class Executor:
         d.update(self._res_counters)
         return d
 
+    def program_keys(self) -> set[ProgramKey]:
+        """The keys of the chunk programs built so far."""
+        return set(self._compiled)
+
     def _get_fn(self, plan: ExecPlan, caps: tuple[int, ...], n_in: int,
                 table_input: bool, collect: str, start: int, stop: int,
-                opts: ExecOpts | None = None):
+                dg: DeviceGraph, opts: ExecOpts):
         """The chunk program for this window, built once per key — the
         reference's compile-cache key, so ``stats["compiles"]`` counts the
         same events.  (There is no buffer donation: an eager torch program
         allocates its outputs, and the caching allocator reuses the freed
         inputs' memory.)"""
-        opts = self.opts if opts is None else opts
-        key = (plan.signature(), caps[start:stop], n_in, table_input,
-               collect, start, stop, opts.key(), self.dg.key())
+        key = ProgramKey(plan.signature(), caps[start:stop], n_in,
+                         table_input, collect, start, stop, opts.key(),
+                         dg.key())
         fn = self._compiled.get(key)
         fresh = fn is None
         if fresh:
             _faults.fire("compile")
-            fn = build_chunk_fn(self.dg, plan, caps, n_in, opts,
+            fn = build_chunk_fn(dg, plan, caps, n_in, opts,
                                 table_input, collect, start, stop)
             self._compiled[key] = fn
         return fn, fresh
 
-    def _arrays(self, plan: ExecPlan) -> list[dict[str, torch.Tensor]]:
+    def _arrays(self, plan: ExecPlan,
+                state: tuple) -> list[dict[str, torch.Tensor]]:
+        view, dg = state
+        if view is not None:
+            return self._snapshot_arrays(plan, view, dg)
         # cache on the plan object itself (an id()-keyed dict can collide
         # when a dead plan's id is recycled by the allocator)
         use_prune = self.opts.use_prune
@@ -716,6 +940,131 @@ class Executor:
         arrs = _plan_arrays(self.graph, plan, use_prune, self.device)
         plan._dev_arrays_torch = (self.graph, use_prune, self.device, arrs)  # type: ignore[attr-defined]
         return arrs
+
+    def _snapshot_arrays(self, plan: ExecPlan, snap,
+                         dg: DeviceGraph) -> list[dict[str, torch.Tensor]]:
+        """Per-step device constants for snapshot execution: padded base
+        CSR rows, the snapshot's delta/tombstone CSRs, merged label bitmap,
+        signature and numeric column, and freshly resolved (and re-pruned)
+        restart candidates.  Cached on the plan per (snapshot, prune,
+        device)."""
+        from repro_torch.core.planner.cost import CostModel
+
+        use_prune = self.opts.use_prune
+        dev = self.device
+        token = (snap.token(), use_prune, dev)
+        cached = getattr(plan, "_dev_arrays_snap_torch", None)
+        if cached is not None and cached[0] == token:
+            return cached[1]
+        _faults.fire("delta_merge")
+        n_pad = dg.pad_vertices
+        cm = CostModel(snap)
+        flat_cache: dict[bool, torch.Tensor] = {}
+
+        def base_flat(fwd: bool) -> torch.Tensor:
+            if fwd not in flat_cache:
+                dirn = self.graph.out if fwd else self.graph.inc
+                flat_cache[fwd] = _tensor(dirn.indptr_el.reshape(-1),
+                                          np.int32, dev)
+            return flat_cache[fwd]
+
+        def mask(x) -> torch.Tensor:
+            return _tensor(x, np.uint32, dev)
+
+        out: list[dict[str, torch.Tensor]] = []
+        for s in plan.steps:
+            d: dict[str, torch.Tensor] = {}
+            if s.restart_candidates is not None:
+                cands = np.sort(cm.candidates(plan.query, s.u)) \
+                    .astype(np.int32)
+                if use_prune and s.sig_mask is not None and cands.size:
+                    # re-apply the plan's baked candidate prune to the
+                    # freshly resolved set (conservative snapshot rows)
+                    from repro_torch.index import signature_rows
+
+                    rows = signature_rows(snap)
+                    keep = np.all((rows[cands] & s.sig_mask) == s.sig_mask,
+                                  axis=-1)
+                    cands = cands[keep]
+                n_real = cands.size
+                # pow2 padding keeps the shapes stable across snapshots
+                target = _next_pow2(max(1, n_real))
+                if n_real < target:
+                    cands = np.concatenate(
+                        [cands, np.full(target - n_real, -1, np.int32)])
+                d["restart"] = _tensor(cands, np.int32, dev)
+                d["restart_n"] = _scalar(int(n_real), dev)
+            elif s.elabel >= 0:
+                d["iptr"] = snap.base_el_row_padded(s.elabel, s.forward,
+                                                    n_pad, dev)
+                d.update(snap.dev_el_step(s.elabel, s.forward, n_pad, dev))
+            else:
+                d["all_iptr"] = snap.base_plain_padded(s.forward, n_pad, dev)
+                d.update(snap.dev_plain(s.forward, n_pad, dev))
+            if s.labels:
+                d["label_mask"] = mask(_label_mask(self.graph, s.labels))
+            if s.labels or _fused_eligible(s, self.opts):
+                d["bitmap"] = snap.dev_bitmap(n_pad, dev)
+            if use_prune and s.sig_mask is not None \
+                    and s.restart_candidates is None:
+                d["sig_mask"] = mask(s.sig_mask)
+                d["sig"] = snap.dev_sig(n_pad, dev)
+                if _fused_eligible(s, self.opts):
+                    lm = _label_mask(self.graph, s.labels) if s.labels else \
+                        np.zeros(self.graph.label_bitmap.shape[1], np.uint32)
+                    d["fmask"] = mask(np.concatenate([lm, s.sig_mask]))
+                    d["filter_bitmap"] = snap.dev_filter_bitmap(n_pad, dev)
+            if s.num_filters:
+                nv = snap.dev_numeric(n_pad, dev)
+                if nv is not None:
+                    d["numeric"] = nv
+            for ci, c in enumerate(s.nontree):
+                use_out = c.forward or c.self_loop
+                if c.pvar_idx >= 0:
+                    d[f"nt{ci}_flat"] = base_flat(use_out)
+                    for k, v in snap.dev_flat(use_out, n_pad, dev).items():
+                        d[f"nt{ci}_{k}"] = v
+                else:
+                    d[f"nt{ci}_iptr"] = snap.base_el_row_padded(
+                        c.elabel, use_out, n_pad, dev)
+                    for k, v in snap.dev_el_step(c.elabel, use_out, n_pad,
+                                                 dev).items():
+                        d[f"nt{ci}_{k}"] = v
+            out.append(d)
+        plan._dev_arrays_snap_torch = (token, out)  # type: ignore[attr-defined]
+        return out
+
+    def _start_candidates(self, plan: ExecPlan, view) -> np.ndarray:
+        """The plan's start-candidate set, re-resolved against ``view`` when
+        executing a live store (plans are cached across versions; their
+        baked candidate arrays go stale, the spec — labels / bound id /
+        cheap numeric filters / start signature — does not)."""
+        if view is None:
+            return plan.start_candidates
+        from repro_torch.core.planner.cost import CostModel
+        from repro_torch.core.planner.ir import np_cmp
+
+        token = (view.token(), self.opts.use_prune)
+        cached = getattr(plan, "_snap_start", None)
+        if cached is not None and cached[0] == token:
+            return cached[1]
+        cands = CostModel(view).candidates(plan.query, plan.start_vertex)
+        nf = getattr(plan, "start_num_filters", ())
+        if nf and view.numeric_value is not None:
+            vals = view.numeric_value[cands]
+            keep = np.ones(cands.shape[0], bool)
+            for op, c in nf:
+                keep &= np_cmp(vals, op, c)
+            cands = cands[keep]
+        sig = getattr(plan, "start_sig", None)
+        if self.opts.use_prune and sig is not None and cands.size:
+            from repro_torch.index import signature_rows
+
+            rows = signature_rows(view)
+            cands = cands[np.all((rows[cands] & sig) == sig, axis=-1)]
+        cands = np.sort(cands).astype(np.int32)
+        plan._snap_start = (token, cands)  # type: ignore[attr-defined]
+        return cands
 
     def _schedule(self, plan: ExecPlan, chunk_size: int,
                   opts: ExecOpts | None = None) -> tuple[tuple, list[int]]:
@@ -748,6 +1097,7 @@ class Executor:
         collect: str = "bindings",
         initial: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         profile: bool | None = None,
+        state: tuple | None = None,
         cancel: CancelToken | None = None,
         _opts_override: ExecOpts | None = None,
     ) -> Result:
@@ -755,6 +1105,8 @@ class Executor:
         steps as an *extension* of existing rows (OPTIONAL left joins).
         ``profile=True`` (or ``ExecOpts.profile``) executes step by step
         with device syncs to fill per-step wall times in ``Result.stats``.
+        ``state`` pins a ``pin()``-captured (view, device graph) pair so a
+        multi-run query stays on one snapshot under concurrent updates.
         ``cancel`` is polled between chunk dispatches and suffix-resume
         re-entries.
 
@@ -766,8 +1118,8 @@ class Executor:
             cancel = CancelToken(self.opts.deadline)
         if _opts_override is not None:
             # explicit config (small-plan probes, degraded re-runs)
-            return self._run_impl(plan, collect, initial, profile, cancel,
-                                  _opts_override)
+            return self._run_impl(plan, collect, initial, profile, state,
+                                  cancel, _opts_override)
         sig = plan.signature()
         policy = self._policy
         level = self._breaker.level(sig)
@@ -775,7 +1127,7 @@ class Executor:
         while True:
             try:
                 res = self._run_impl(
-                    plan, collect, initial, profile, cancel,
+                    plan, collect, initial, profile, state, cancel,
                     degrade_opts(self.opts, level) if level else None)
             except QueryCancelled:
                 raise
@@ -826,9 +1178,12 @@ class Executor:
         collect: str = "bindings",
         initial: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         profile: bool | None = None,
+        state: tuple | None = None,
         cancel: CancelToken | None = None,
         _opts_override: ExecOpts | None = None,
     ) -> Result:
+        state = self.pin() if state is None else state
+        view, dg = state
         if plan.unsat:
             return Result(0, _empty(plan), _empty_p(plan), np.zeros(0, np.int32))
         if plan.n_params:
@@ -848,7 +1203,7 @@ class Executor:
                 legacy = replace(opts, cap_schedule=False,
                                  suffix_resume=False, async_chunks=1,
                                  use_fused=False)
-                kw = dict(collect=collect, cancel=cancel)
+                kw = dict(collect=collect, state=state, cancel=cancel)
                 res = self.run(plan, _opts_override=opts, **kw)
                 t0 = time.perf_counter()
                 res = self.run(plan, _opts_override=opts, **kw)
@@ -875,7 +1230,7 @@ class Executor:
 
         if initial is None and not plan.steps:
             # point-shaped query (paper Algorithm 1 lines 2–4)
-            cands = plan.start_candidates
+            cands = self._start_candidates(plan, view)
             b = np.full((cands.shape[0], nq), -1, dtype=np.int32)
             b[:, plan.start_vertex] = cands
             return Result(
@@ -885,13 +1240,13 @@ class Executor:
                 np.arange(cands.shape[0], dtype=np.int32),
             )
 
-        sarrs = self._arrays(plan)
+        sarrs = self._arrays(plan, state)
         extension = initial is not None
         if extension:
             b0, p0, org0 = initial
             n_src = b0.shape[0]
         else:
-            start_cands = plan.start_candidates
+            start_cands = self._start_candidates(plan, view)
             n_src = start_cands.shape[0]
         if n_src == 0 or (not extension and not plan.steps):
             return Result(0, _empty(plan) if collect == "bindings" else None,
@@ -952,7 +1307,7 @@ class Executor:
             args = host_args(offset, hi)
             used = tuple(caps)
             fn, fresh = self._get_fn(plan, used, chunk_size, extension,
-                                     collect, 0, n_steps, opts)
+                                     collect, 0, n_steps, dg, opts)
             stats["chunks"] += 1
             return {"out": call_fn(fn, fresh, (*args, sarrs)),
                     "args": args, "caps": used, "offset": offset}
@@ -1000,7 +1355,7 @@ class Executor:
                     new_caps = _grow_caps(list(used), ovf, opts.max_cap)
                     n_in = used[ovf - 1] if ovf > 0 else chunk_size
                     fn, fresh = self._get_fn(plan, tuple(new_caps), n_in,
-                                             True, collect, ovf, n_steps,
+                                             True, collect, ovf, n_steps, dg,
                                              opts)
                     b, p, org, count, scalars = call_fn(
                         fn, fresh,
@@ -1017,7 +1372,7 @@ class Executor:
                     new_caps = [min(opts.max_cap, c * 2) for c in used]
                     fn, fresh = self._get_fn(plan, tuple(new_caps),
                                              chunk_size, extension, collect,
-                                             0, n_steps, opts)
+                                             0, n_steps, dg, opts)
                     b, p, org, count, scalars = call_fn(
                         fn, fresh, (*rec["args"], sarrs))
                     start = 0
@@ -1045,7 +1400,8 @@ class Executor:
             if profile and n_steps:
                 self._run_profiled_chunk(plan, sarrs, offset, hi, chunk_size,
                                          extension, collect, caps_key, stats,
-                                         host_args, drain, opts, check_cancel)
+                                         host_args, drain, dg, opts,
+                                         check_cancel)
             else:
                 pending.append(dispatch(offset, hi))
                 if len(pending) >= max_inflight:
@@ -1057,7 +1413,8 @@ class Executor:
         stats["caps"] = list(self._caps_cache[caps_key])
         stats["wall_ms"] = (time.perf_counter() - t_run0) * 1e3
         stats["step_kernels"] = [
-            _step_kernel_name(st, opts, collect == "count" and si == n_steps - 1)
+            _step_kernel_name(dg, st, sarrs[si], opts,
+                              collect == "count" and si == n_steps - 1)
             for si, st in enumerate(plan.steps)]
         bindings = (np.concatenate(out_b) if out_b else _empty(plan)) \
             if collect == "bindings" else None
@@ -1070,7 +1427,8 @@ class Executor:
 
     def _run_profiled_chunk(self, plan, sarrs, offset, hi, chunk_size,
                             extension, collect, caps_key, stats, host_args,
-                            drain, opts: ExecOpts, check_cancel) -> None:
+                            drain, dg: DeviceGraph, opts: ExecOpts,
+                            check_cancel) -> None:
         """Step-at-a-time execution of one chunk with device syncs, filling
         per-step wall times; overflow handling is inherently suffix-resume
         (each window re-runs alone with a doubled capacity)."""
@@ -1088,7 +1446,7 @@ class Executor:
                 n_in = chunk_size if si == 0 else used[si - 1]
                 fn, fresh = self._get_fn(plan, used, n_in,
                                          extension or si > 0,
-                                         collect, si, si + 1, opts)
+                                         collect, si, si + 1, dg, opts)
                 if fresh:
                     stats["compiles"] += 1
                 poison = _faults.fire("dispatch")

@@ -1,7 +1,8 @@
 """Full SPARQL evaluation: BGP + OPTIONAL + FILTER + UNION (paper §5.1).
 
-The port of ``repro.core.sparql_exec`` onto the torch executor (static
-graphs).  Orchestrates the vectorized executor:
+The port of ``repro.core.sparql_exec`` onto the torch executor, over a
+static graph or a live-store snapshot (``set_graph`` swaps in a newer
+one).  Orchestrates the vectorized executor:
 
 - the required basic graph pattern runs first (one ExecPlan);
 - each OPTIONAL group becomes an *extension plan* left-joined onto the base
@@ -165,6 +166,33 @@ class SparqlEngine:
         self._plan_cache = plan_cache
 
     # ------------------------------------------------------------------ API
+    @property
+    def plan_cache(self):
+        return self._plan_cache
+
+    def set_graph(self, g) -> None:
+        """Point the engine at a new graph state (live-store updates).
+
+        A newer :class:`~repro_torch.store.versioned.Snapshot` of the *same*
+        base swaps into the existing executor: chunk programs and the plan
+        cache survive; only the delta arrays change.  A different base
+        (after a compaction, or a plain graph) rebuilds the executor on the
+        same device; the plan cache still survives, since plans are
+        structural and snapshot execution re-resolves their candidate sets
+        per version."""
+        self.graph = g
+        if (getattr(g, "is_snapshot", False) and self.executor.view is not None
+                and g.base is self.executor.graph):
+            self.executor.set_snapshot(g)
+        else:
+            # carry the retry policy and learned degradation levels across
+            # the rebuild (plan signatures are structural, so they remain
+            # valid keys against the new graph state)
+            prev = self.executor
+            self.executor = Executor(g, self.opts, device=self.device,
+                                     policy=prev.policy,
+                                     breaker=prev.breaker)
+
     def compile(self, source: str | SelectQuery):
         """Canonicalize + compile through the plan cache.
 
@@ -191,7 +219,12 @@ class SparqlEngine:
         fresh = compiled is None
         if fresh:
             compiled = self._compile_ast(canon.query, canon.fingerprint)
-            self._plan_cache.put(canon.fingerprint, compiled)
+            # live store: an unsat verdict is only as old as this snapshot
+            # (a later update may intern the missing term), so such queries
+            # recompile instead of caching the verdict
+            if not (getattr(self.graph, "is_snapshot", False)
+                    and compiled.any_unsat):
+                self._plan_cache.put(canon.fingerprint, compiled)
         return (compiled, fresh) if with_fresh else compiled
 
     def execute_compiled(self, compiled: CompiledQuery,
@@ -217,14 +250,19 @@ class SparqlEngine:
         step_card: list[tuple[float, int]] = []
         variables, kinds = compiled.variables, compiled.kinds
         modifiers = compiled.has_modifiers
+        # pin one executor AND its state (snapshot + device graph) for the
+        # whole query: a concurrent update must not tear a UNION branch or
+        # an OPTIONAL join across versions, and a rebuild in set_graph
+        # replaces self.executor, so the object itself is captured too
         executor = self.executor
+        state = executor.pin()
         for bi, br in enumerate(compiled.branches):
             if cancel is not None:
                 cancel.check({"exec": {"branches": exec_stats}})
             try:
                 rows, count, info = self._exec_branch(
                     br, collect if not modifiers else "bindings",
-                    profile, executor, cancel)
+                    profile, executor, state, cancel)
             except QueryCancelled as e:
                 # enrich with the completed branches' stats so the 504
                 # body can report partial progress
@@ -405,6 +443,7 @@ class SparqlEngine:
     # ------------------------------------------------------------ execution
     def _exec_branch(self, br: CompiledBranch, collect: str = "bindings",
                      profile: bool = False, executor=None,
+                     state: tuple | None = None,
                      cancel: CancelToken | None = None):
         """Run one branch; returns ``(rows | None, count, exec_stats)``."""
         executor = self.executor if executor is None else executor
@@ -412,7 +451,7 @@ class SparqlEngine:
                       and not br.expensive)
         res = executor.run(
             br.plan, collect="count" if count_only else "bindings",
-            profile=profile, cancel=cancel)
+            profile=profile, state=state, cancel=cancel)
         info: dict = {"base": res.stats}
         if count_only:
             return None, res.count, info
@@ -423,7 +462,7 @@ class SparqlEngine:
         for oi, co in enumerate(br.optionals):
             table, ptable, ost = self._exec_left_join(table, ptable, co,
                                                       profile, executor,
-                                                      cancel)
+                                                      state, cancel)
             opt_stats.append(ost)
         if opt_stats:
             info["optionals"] = opt_stats
@@ -462,7 +501,8 @@ class SparqlEngine:
 
     def _exec_left_join(self, table: np.ndarray, ptable: np.ndarray,
                         co: CompiledOptional, profile: bool = False,
-                        executor=None, cancel: CancelToken | None = None):
+                        executor=None, state: tuple | None = None,
+                        cancel: CancelToken | None = None):
         """Left-outer join a compiled OPTIONAL extension onto the table."""
         q_ext, plan, expensive = co.q_ext, co.plan, co.expensive
         nq_ext = q_ext.n_vertices
@@ -478,7 +518,8 @@ class SparqlEngine:
         else:
             executor = self.executor if executor is None else executor
             matched = executor.run(plan, initial=(b0, p0, org0),
-                                   profile=profile, cancel=cancel)
+                                   profile=profile, state=state,
+                                   cancel=cancel)
         mt, mp, morg = self._apply_expensive(matched.bindings,
                                              matched.pvar_bindings,
                                              q_ext, expensive,

@@ -39,6 +39,8 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     "tile_membership": ("repro_tile_membership", [P, P, P, I, I, I, P]),
     "bitmap_superset": ("repro_bitmap_superset", [P, P, P, I, I, P]),
     "signature_filter": ("repro_signature_filter", [P, P, P, P, I, I, I, P]),
+    "delta_merge": ("repro_delta_merge",
+                    [P, I, P, I, P, I, P, P, P, P, P, P, P, P, P, I, I, P]),
 }
 
 _lock = threading.Lock()

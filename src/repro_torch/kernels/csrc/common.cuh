@@ -30,6 +30,27 @@ __device__ __forceinline__ bool superset(const int32_t* __restrict__ row,
   return ok;
 }
 
+// Is t in the sorted slice nbr[lo0, hi0)?  A lower-bound binary search of
+// at most n_iters halving rounds that stops once its range is empty; the
+// reference runs exactly n_iters rounds, and the rounds after the range
+// empties change nothing it reports, so the two agree for every n_iters.
+// Indices clamp into [0, m) as the reference's gathers do.
+__device__ __forceinline__ bool sorted_contains(const int32_t* __restrict__ nbr,
+                                                int m, int lo0, int hi0,
+                                                int t, int n_iters) {
+  int l = lo0;
+  int h = hi0;
+  for (int it = 0; it < n_iters && l < h; ++it) {
+    const int mid = (l + h) >> 1;
+    if (__ldg(nbr + clampi(mid, 0, m - 1)) < t) {
+      l = mid + 1;
+    } else {
+      h = mid;
+    }
+  }
+  return lo0 < hi0 && l < hi0 && __ldg(nbr + clampi(l, 0, m - 1)) == t;
+}
+
 inline unsigned int blocks_for(long long n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }

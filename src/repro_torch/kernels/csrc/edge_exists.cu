@@ -23,21 +23,8 @@ __global__ void edge_exists_kernel(const int32_t* __restrict__ nbr,
                                    int n_iters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int lo0 = __ldg(lo + i);
-  const int hi0 = __ldg(hi + i);
-  const int t = __ldg(target + i);
-  int l = lo0;
-  int h = hi0;
-  for (int it = 0; it < n_iters && l < h; ++it) {
-    const int mid = (l + h) >> 1;
-    if (__ldg(nbr + repro::clampi(mid, 0, m - 1)) < t) {
-      l = mid + 1;
-    } else {
-      h = mid;
-    }
-  }
-  out[i] = lo0 < hi0 && l < hi0 &&
-           __ldg(nbr + repro::clampi(l, 0, m - 1)) == t;
+  out[i] = repro::sorted_contains(nbr, m, __ldg(lo + i), __ldg(hi + i),
+                                  __ldg(target + i), n_iters);
 }
 
 }  // namespace

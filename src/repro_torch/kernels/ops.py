@@ -6,12 +6,13 @@ else picks the path: no environment switch, no fallback.  Each kernel
 wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show which kernels it went through.
 
-The five kernels replace the reference's on-path Pallas TPU kernels
-(``expand_filter_compact``, ``edge_exists``, ``tile_membership``,
-``bitmap_superset``, ``signature_filter``).  ``ragged_expand`` and
+The six kernels replace the reference's Pallas TPU kernels on the engine's
+paths: ``expand_filter_compact``, ``edge_exists``, ``tile_membership``,
+``bitmap_superset`` and ``signature_filter`` on every query, and
+``delta_merge`` on live-store snapshots.  ``ragged_expand`` and
 ``delta_merge_labeled`` are plain tensor code in the reference too and run
-as such on every device.  ``delta_merge`` and ``segment_gather_sum`` have
-no Hopper kernel yet and raise on a CUDA tensor.
+as such on every device.  ``segment_gather_sum`` has no Hopper kernel yet
+and raises on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 
 KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
-           "bitmap_superset", "signature_filter")
+           "bitmap_superset", "signature_filter", "delta_merge")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # capacity bound of the compaction kernel's one-block scan of block counts
@@ -173,22 +174,61 @@ def delta_merge_labeled(base_nbr, base_lab, delta_nbr, delta_lab, tomb_key,
                         b_start, b_deg, d_start, t_lo, t_hi, j, valid,
                         n_elabels: int, n_iters: int = 32):
     """Predicate-variable live-store expansion (plain tensor code on every
-    device, as in the reference)."""
+    device, as in the reference).  ``delta_nbr``, ``delta_lab`` and
+    ``tomb_key`` may be ``None`` or empty, as in :func:`delta_merge`."""
+    delta_nbr, delta_lab, tomb_key = (_one_slot(a, base_nbr) for a in
+                                      (delta_nbr, delta_lab, tomb_key))
     return _ref.delta_merge_labeled_ref(base_nbr, base_lab, delta_nbr,
                                         delta_lab, tomb_key, b_start, b_deg,
                                         d_start, t_lo, t_hi, j, valid,
                                         n_elabels, n_iters=n_iters)
 
 
+_PAD: dict[torch.device, torch.Tensor] = {}
+
+
+def _one_slot(a: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """An absent (``None``) or zero-length int32 adjacency array reads as
+    one slot of -1, as the reference's kernel pads it (every read of it is
+    clamped into range).  The pad is made once per device and only read."""
+    if a is not None and a.shape[0]:
+        return a
+    pad = _PAD.get(like.device)
+    if pad is None:
+        pad = _PAD[like.device] = torch.full((1,), -1, dtype=torch.int32,
+                                             device=like.device)
+    return pad
+
+
 def delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
                 t_lo, t_hi, j, valid, n_iters: int = 32):
-    """Live-store slot resolution with tombstone masking."""
-    if _on_cuda(base_nbr, delta_nbr, tomb_nbr, b_start, j):
-        raise NotImplementedError(
-            "delta_merge has no Hopper kernel yet (live-store slice)")
-    return _ref.delta_merge_ref(base_nbr, delta_nbr, tomb_nbr, b_start,
-                                b_deg, d_start, t_lo, t_hi, j, valid,
-                                n_iters=n_iters)
+    """Live-store slot resolution with tombstone masking: slot position
+    ``j < b_deg`` reads ``base_nbr[b_start + j]``, later positions
+    ``delta_nbr[d_start + j - b_deg]``; a base candidate found in
+    ``tomb_nbr[t_lo:t_hi)`` is masked.  Returns ``(v, ok)``: int32 ``v``
+    (-1 where not ``valid``) and bool ``ok``.  An adjacency array may be
+    ``None`` (the direction has no delta or no tombstones) or empty.  See
+    :func:`repro_torch.kernels.ref.delta_merge_ref`."""
+    base_nbr, delta_nbr, tomb_nbr = (_one_slot(a, b_start) for a in
+                                     (base_nbr, delta_nbr, tomb_nbr))
+    slots = (b_start, b_deg, d_start, t_lo, t_hi, j)
+    if not _on_cuda(base_nbr, delta_nbr, tomb_nbr, *slots, valid):
+        return _ref.delta_merge_ref(base_nbr, delta_nbr, tomb_nbr, b_start,
+                                    b_deg, d_start, t_lo, t_hi, j, valid,
+                                    n_iters=n_iters)
+    _check("delta_merge", base_nbr, delta_nbr, tomb_nbr, *slots,
+           same_len=(*slots, valid))
+    if valid.dtype != torch.bool or not valid.is_contiguous():
+        raise ValueError(f"delta_merge: expected a contiguous bool valid "
+                         f"mask, got {valid.dtype}")
+    k = j.shape[0]
+    v = torch.empty(k, dtype=torch.int32, device=j.device)
+    ok = torch.empty(k, dtype=torch.bool, device=j.device)
+    if k:
+        _launch("delta_merge", "delta_merge", base_nbr, base_nbr.shape[0],
+                delta_nbr, delta_nbr.shape[0], tomb_nbr, tomb_nbr.shape[0],
+                *slots, valid, v, ok, k, n_iters)
+    return v, ok
 
 
 def segment_gather_sum(table, indices, segments, num_segments, weights=None):

@@ -15,8 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_cases import (EFC_CASES, bitmap_inputs, edge_inputs,  # noqa: E402
-                         efc_inputs, same, sig_inputs, tile_inputs, tt)
+from torch_cases import (DELTA_CASES, EFC_CASES, bitmap_inputs,  # noqa: E402
+                         delta_inputs, edge_inputs, efc_inputs, same,
+                         sig_inputs, tile_inputs, tt)
 
 
 @pytest.fixture
@@ -90,7 +91,29 @@ def test_cuda_launch_counts(cuda):
     assert ops.launches["bitmap_superset"] == 1
     with pytest.raises(NotImplementedError):
         t = tt(np.zeros(4, np.int32), cuda)
-        ops.delta_merge(t, t, t, t, t, t, t, t, t, t.bool())
+        ops.segment_gather_sum(t.float()[:, None], t, t, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,mb,md,mt,run,mode", DELTA_CASES + [
+    (1 << 20, 1_500_000, 1 << 14, 200_000, 4000, "mixed"),  # base > 2^20
+    (1 << 18, 5_926_720, 4096, 70_000, 300, "base"),
+])
+@pytest.mark.parametrize("n_iters", [8, 32])
+def test_cuda_delta_merge(cuda, k, mb, md, mt, run, mode, n_iters):
+    args, _ = delta_inputs(k, mb, md, mt, k + mb + mt, run=run,
+                           vmax=max(60, mb // 2), mode=mode)
+    ops.reset_launches()
+    got = ops.delta_merge(*(tt(a, cuda) for a in args), n_iters=n_iters)
+    torch.cuda.synchronize()
+    assert ops.launches["delta_merge"] == 1
+    # the wrapper pads empty arrays; the plain version sees them padded
+    padded = [a if a.shape[0] or i > 2 else np.full(1, -1, np.int32)
+              for i, a in enumerate(args)]
+    want = ref.delta_merge_ref(*(tt(a, cuda) for a in padded),
+                               n_iters=n_iters)
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
 
 
 @pytest.mark.cuda
@@ -116,3 +139,44 @@ def test_cuda_engine_matches_cpu(cuda, semantics, use_fused):
             assert got.count == want.count, name
             np.testing.assert_array_equal(got.rows, want.rows, err_msg=name)
             assert gpu.count(q) == want.count, name
+
+
+@pytest.mark.cuda
+def test_cuda_live_store_matches_cpu(cuda):
+    """A live store on the card: a snapshot with inserts and deletes in
+    every batch, swapped in with ``set_graph``, answers exactly as the same
+    snapshot on the CPU, through ``delta_merge``."""
+    from repro_torch.core import SparqlEngine
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.triples import TripleStore
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+    from repro_torch.store import VersionedStore
+
+    st = generate_lubm(scale=2, seed=0, density=0.6).finalize()
+    triples = list(st.iter_decoded())
+    rng = np.random.default_rng(5)
+    plain = [t for t in triples if t[1] not in ("rdf:type", "rdf:subClassOf")]
+    hold = set(rng.choice(len(plain), size=len(plain) // 8, replace=False))
+    ins = [plain[i] for i in sorted(hold)]
+    held = set(ins)
+    base = [t for t in triples if t not in held]
+    bst = TripleStore()
+    bst.add_many(base)
+    g, maps = type_aware_transform(bst.finalize())
+    store = VersionedStore(g, maps, auto_compact=False)
+    gpu = SparqlEngine(store.snapshot(), maps)
+    dels = [base[i] for i in rng.choice(len(base), size=50, replace=False)
+            if base[i][1] not in ("rdf:type", "rdf:subClassOf")]
+    ops.reset_launches()
+    for b in range(2):
+        store.insert_triples(ins[b::2])
+        store.delete_triples(dels[b::2])
+        gpu.set_graph(store.snapshot())
+        cpu = SparqlEngine(store.snapshot(), maps, device="cpu")
+        for name, q in LUBM_QUERIES.items():
+            got, want = gpu.query(q), cpu.query(q)
+            assert got.count == want.count, (b, name)
+            np.testing.assert_array_equal(got.rows, want.rows, err_msg=name)
+            assert gpu.count(q) == want.count, (b, name)
+    assert ops.launches["delta_merge"] > 0

@@ -20,12 +20,17 @@ def test_import_and_cpu_query_load_no_jax_or_reference():
 import sys
 from repro_torch.core import SparqlEngine
 from repro_torch.rdf.generator import generate_lubm
+from repro_torch.store import VersionedStore
 from repro_torch.rdf.transform import type_aware_transform
 from repro_torch.rdf.workloads import LUBM_QUERIES
 g, maps = type_aware_transform(generate_lubm(scale=1, seed=0, density=0.3).finalize())
 eng = SparqlEngine(g, maps, device="cpu")
 assert eng.count(LUBM_QUERIES["Q2"]) > 0
 assert eng.query(LUBM_QUERIES["Q9"]).count > 0
+store = VersionedStore(g, maps, auto_compact=False)
+store.apply_update("INSERT DATA { ub:IsoS ub:advisor ub:IsoO . }")
+eng.set_graph(store.snapshot())
+assert eng.count(LUBM_QUERIES["Q9"]) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.startswith("jax")
              or m.startswith("jaxlib"))
@@ -42,6 +47,7 @@ def test_no_source_imports_jax_or_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert PKG / "store" / "versioned.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
@@ -65,3 +71,13 @@ def test_entry_points_raise_without_cuda(lubm_graph, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SparqlEngine(tg, maps)
     assert SparqlEngine(tg, maps, device="cpu").device.type == "cpu"
+    from repro_torch.store import VersionedStore
+
+    store = VersionedStore(tg, maps, auto_compact=False)
+    store.insert_triples([("ub:IsoS", "ub:advisor", "ub:IsoO")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SparqlEngine(store.snapshot(), maps)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Executor(store.snapshot())
+    eng = SparqlEngine(store.snapshot(), maps, device="cpu")
+    assert eng.count("SELECT ?x WHERE { ?x ub:advisor ub:IsoO . }") == 1

@@ -1,7 +1,7 @@
 """Kernel parity: the port's plain PyTorch versions against the reference.
 
-Seeded numpy inputs go through ``repro.kernels.ref`` (and, for the five
-kernels on the engine's path, the Pallas kernel in interpret mode) and
+Seeded numpy inputs go through ``repro.kernels.ref`` (and, for the six
+kernels on the engine's paths, the Pallas kernel in interpret mode) and
 through ``repro_torch.kernels``; integer and boolean outputs must be
 bit-equal.  Bitmap words go to torch as int32 bit patterns of the same
 uint32 values.  ``test_torch_cuda.py`` holds each hand-written Hopper
@@ -22,8 +22,10 @@ from repro.kernels.expand_filter import expand_filter_compact_pallas  # noqa: E4
 from repro.kernels.signature_filter import signature_filter_pallas  # noqa: E402
 from repro.kernels.sorted_intersect import tile_membership_pallas  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_cases import (EFC_CASES, bitmap_inputs, edge_inputs,  # noqa: E402
-                         efc_inputs, same, sig_inputs, tile_inputs, tt)
+from repro.kernels.delta_merge import delta_merge_pallas  # noqa: E402
+from torch_cases import (DELTA_CASES, EFC_CASES, bitmap_inputs,  # noqa: E402
+                         delta_inputs, edge_inputs, efc_inputs, same,
+                         sig_inputs, tile_inputs, tt)
 
 
 # ---------------------------------------------- plain version vs reference
@@ -118,43 +120,39 @@ def test_ragged_expand(degs, cap):
         same(g_, w_)
 
 
-def _delta_inputs(k, mb, md, mt, seed, labeled=False):
-    rng = np.random.default_rng(seed)
-    base = np.sort(rng.integers(0, 60, size=mb)).astype(np.int32)
-    delta = rng.integers(0, 60, size=md).astype(np.int32)
-    b_start = rng.integers(0, mb, size=k).astype(np.int32)
-    b_deg = rng.integers(0, 6, size=k).astype(np.int32)
-    d_start = rng.integers(0, md, size=k).astype(np.int32)
-    t_lo = rng.integers(0, mt, size=k).astype(np.int32)
-    t_hi = np.minimum(mt, t_lo + rng.integers(0, 4, size=k)).astype(np.int32)
-    j = rng.integers(0, 9, size=k).astype(np.int32)
-    valid = rng.random(k) < 0.8
-    if labeled:
-        n_el = 5
-        base_lab = rng.integers(0, n_el, size=mb).astype(np.int32)
-        delta_lab = rng.integers(0, n_el, size=md).astype(np.int32)
-        tomb = np.sort(base[rng.integers(0, mb, size=mt)].astype(np.int64) * n_el
-                       + base_lab[rng.integers(0, mb, size=mt)]).astype(np.int32)
-        return (base, base_lab, delta, delta_lab, tomb, b_start, b_deg,
-                d_start, t_lo, t_hi, j, valid), n_el
-    tomb = np.sort(base[rng.integers(0, mb, size=mt)]).astype(np.int32)
-    return (base, delta, tomb, b_start, b_deg, d_start, t_lo, t_hi, j,
-            valid), None
-
-
 @pytest.mark.parametrize("k,mb,md,mt", [(1, 1, 1, 1), (64, 40, 10, 8),
                                         (300, 200, 50, 30)])
 def test_delta_merge(k, mb, md, mt):
-    args, _ = _delta_inputs(k, mb, md, mt, k + mb)
+    args, _ = delta_inputs(k, mb, md, mt, k + mb)
     want = jref.delta_merge_ref(*map(jnp.asarray, args), n_iters=8)
     got = ops.delta_merge(*map(tt, args), n_iters=8)
     for g_, w_ in zip(got, want):
         same(g_, w_)
 
 
+@pytest.mark.parametrize("k,mb,md,mt,run,mode", DELTA_CASES)
+@pytest.mark.parametrize("n_iters", [8, 32])
+def test_delta_merge_edge_cases(k, mb, md, mt, run, mode, n_iters):
+    """Empty arrays, all-base / all-delta rows and tombstone runs longer
+    than 256 against the TPU kernel in interpret mode (it pads empty arrays
+    to one slot of -1, as the port's wrapper does) and, where no array is
+    empty, against the reference's plain version too."""
+    args, _ = delta_inputs(k, mb, md, mt, k + mb + mt, run=run,
+                           vmax=max(60, mb // 2), mode=mode)
+    got = ops.delta_merge(*map(tt, args), n_iters=n_iters)
+    want = delta_merge_pallas(*map(jnp.asarray, args), n_iters=n_iters,
+                              interpret=True)
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
+    if mb and md and mt:
+        want = jref.delta_merge_ref(*map(jnp.asarray, args), n_iters=n_iters)
+        for g_, w_ in zip(got, want):
+            same(g_, w_)
+
+
 @pytest.mark.parametrize("k,mb,md,mt", [(1, 1, 1, 1), (128, 60, 20, 12)])
 def test_delta_merge_labeled(k, mb, md, mt):
-    args, n_el = _delta_inputs(k, mb, md, mt, 3 * k + md, labeled=True)
+    args, n_el = delta_inputs(k, mb, md, mt, 3 * k + md, labeled=True)
     want = jref.delta_merge_labeled_ref(*map(jnp.asarray, args), n_el,
                                         n_iters=8)
     got = ops.delta_merge_labeled(*map(tt, args), n_el, n_iters=8)

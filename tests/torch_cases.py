@@ -95,3 +95,53 @@ EFC_CASES = [
     (64, 32, 1, 512, True, None),
     (33, 20, 5, 128, False, -1),
 ]
+
+
+def delta_inputs(k, mb, md, mt, seed, labeled=False, run=4, vmax=60,
+                 mode="mixed"):
+    """Seeded ``delta_merge`` inputs: a sorted base array, a delta array, a
+    sorted tombstone array drawn from the base values (so tombstones hit),
+    per-slot row fields and slot positions.  ``run`` bounds each slot's
+    tombstone run; ``mode`` is ``"mixed"`` (base and delta slots),
+    ``"base"`` (every slot reads the base) or ``"delta"`` (every slot reads
+    the delta).  Zero-length arrays are allowed."""
+    rng = np.random.default_rng(seed)
+    base = np.sort(rng.integers(0, vmax, size=mb)).astype(np.int32)
+    delta = rng.integers(0, vmax, size=md).astype(np.int32)
+    b_start = rng.integers(0, max(mb, 1), size=k).astype(np.int32)
+    b_deg = rng.integers(0, 6, size=k).astype(np.int32)
+    d_start = rng.integers(0, max(md, 1), size=k).astype(np.int32)
+    t_lo = rng.integers(0, max(mt, 1), size=k).astype(np.int32)
+    t_hi = np.minimum(mt, t_lo + rng.integers(0, run, size=k)).astype(np.int32)
+    j = rng.integers(0, 9, size=k).astype(np.int32)
+    valid = rng.random(k) < 0.8
+    if mode == "base":
+        b_deg = np.maximum(b_deg, 1)
+        j = (j % b_deg).astype(np.int32)
+    elif mode == "delta":
+        j = (b_deg + j).astype(np.int32)
+    pick = rng.integers(0, max(mb, 1), size=mt)
+    if labeled:
+        n_el = 5
+        base_lab = rng.integers(0, n_el, size=mb).astype(np.int32)
+        delta_lab = rng.integers(0, n_el, size=md).astype(np.int32)
+        tomb = np.sort(base[pick].astype(np.int64) * n_el
+                       + base_lab[rng.integers(0, mb, size=mt)]
+                       ).astype(np.int32)
+        return (base, base_lab, delta, delta_lab, tomb, b_start, b_deg,
+                d_start, t_lo, t_hi, j, valid), n_el
+    tomb = np.sort(base[pick] if mb else np.zeros(mt, np.int32)) \
+        .astype(np.int32)
+    return (base, delta, tomb, b_start, b_deg, d_start, t_lo, t_hi, j,
+            valid), None
+
+
+DELTA_CASES = [
+    # k, mb, md, mt, run, mode
+    (200, 300, 0, 40, 4, "mixed"),      # empty delta array
+    (200, 300, 50, 0, 4, "mixed"),      # empty tombstone array
+    (200, 0, 50, 0, 4, "delta"),        # empty base array, all-delta rows
+    (300, 200, 50, 30, 4, "delta"),     # all-delta rows
+    (300, 200, 50, 30, 4, "base"),      # all-base rows, tombstone hits
+    (500, 4000, 64, 3000, 1500, "mixed"),  # tombstone runs longer than 256
+]
