@@ -6,11 +6,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale N]
 Phases, each fatal on failure (no phase's error is caught):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the six Hopper kernels from ``src/repro_torch/kernels/csrc``
+2. build the seven Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. hold each kernel against its plain PyTorch version on synthetic CUDA
    inputs (``delta_merge`` also on empty arrays, tombstone runs longer than
-   256 and a base array of more than 2^20 words);
+   256 and a base array of more than 2^20 words; ``expand_filter_compact``
+   with its bound id read from a parameter vector; ``segment_gather`` fixed
+   and ragged, weighted and not, float32 and bfloat16, with negative and
+   out-of-range ids and segments, within the tolerances it prints);
 4. parity scale: LUBM (scale 8, density 0.6) and BSBM (3000 products)
    through ``SparqlEngine.query`` on the card; the counts must equal
    ``benchmarks/BENCH_exec.json``;
@@ -25,25 +28,48 @@ Phases, each fatal on failure (no phase's error is caught):
    then all 14 queries on the final snapshot, held against the CPU run of
    that snapshot (counts and rows), a from-scratch rebuild of the final
    triple set (counts) and the compacted store (counts and sorted rows);
-6. each kernel's wrapper on the largest inputs the main path gave it
-   (phases 4-5b), held bit-equal against its plain version and timed beside
-   it with CUDA events, with its byte bound.
+   then a 64-lane batch of the F1 query family (below) on the final
+   snapshot, held against its members' own runs and the CPU run;
+5c. query families on the phase-5 graph: ``compile_param`` →
+   ``execute_param_batch`` for F1 (``benchmarks/bench_serve.py``
+   SAME_SHAPE_TMPL, constants a zipf(0.7) draw over the first 512
+   students, seed 0), F2 and F3 (TMPL_COURSE and TMPL_TWO_CONST of
+   ``tests/test_param_batch.py``), F4 and F5 (LUBM Q9 and Q2 with a hoisted
+   constant, so the batch joins non-tree edges), in batches of 1, 2, 3 and
+   64 lanes and both collect modes; every lane is then held against its
+   own ``execute_param`` run, the CPU run and ``query`` on the text with
+   the constant baked in; one lane's constant is missing, and a 64-lane
+   batch run with a small capacity slack must rerun an overflowing lane
+   alone;
+6. each engine kernel's wrapper on the largest inputs the main path gave
+   it (phases 4-5c), held bit-equal against its plain version and timed
+   beside it with CUDA events, with its byte bound; and ``segment_gather``
+   at its users' shapes (DLRM RM-2's largest table looked up by a
+   ``serve_bulk`` batch; GCN aggregation over ``ogb_products``), held
+   against its plain version within tolerance and timed beside it and
+   beside ``torch.nn.functional.embedding_bag``.
 
-The run drives two paths, each in its own launch-counting window: the
-static path (phases 4-5) and the live path (phase 5b's stream and its
-queries on the final snapshot; its checks against the CPU run, the rebuild
-and the compacted store come after the window closes).  The kernels'
-launch counters are set to 0 just before a window and read just after it; a
-kernel of a path launched no time in that path's window fails the run.  The
-last lines are the ``kernels`` JSON object (``launches`` is the sum of the
-windows, ``launches_by_path`` each window's count), then the device line.
-Details go to ``chiprun_out/chip_smoke.json``.
+The run drives four paths, each in its own launch-counting window: the
+static path (phases 4-5), the parameterized path (phase 5c's family
+batches; the lanes' checks and the solo timings come after the window
+closes), the live path (phase 5b's stream, its queries and its family
+batch on the final snapshot; its checks against the members' own runs, the
+CPU run, the rebuild and the compacted store come after the window
+closes), and the gather path (phase 6's one
+call of each ``segment_gather`` entry point at its users' shapes).  The
+kernels' launch counters are set to 0 just before a window and read just
+after it; a kernel of a path launched no time in that path's window fails
+the run.  The last lines are the ``kernels`` JSON object (``launches`` is
+the sum of the windows, ``launches_by_path`` each window's count), then
+the device line.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import random
+import re
 import subprocess
 import sys
 import time
@@ -73,14 +99,25 @@ KERNEL_INFO = {
                          "src/repro/kernels/signature_filter.py:35"),
     "delta_merge": ("src/repro_torch/kernels/csrc/delta_merge.cu",
                     "src/repro/kernels/delta_merge.py:64"),
+    "segment_gather": ("src/repro_torch/kernels/csrc/segment_gather.cu",
+                       "src/repro/kernels/segment_gather.py:39"),
 }
+# the engine's kernels (each behind the ops wrapper of its name); the
+# recorder keeps their largest calls for phase 6
+ENGINE_KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
+                  "bitmap_superset", "signature_filter", "delta_merge")
 # the kernels each path must launch: the static path has no delta, and in
-# delta mode non-tree joins take edge_exists, never tile_membership
+# delta mode non-tree joins take edge_exists, never tile_membership; the
+# params path's non-tree joins are F4's and F5's, and its fused steps are
+# the batches of one and the lanes rerun alone
 PATH_KERNELS = {
     "static": ("expand_filter_compact", "edge_exists", "tile_membership",
                "bitmap_superset", "signature_filter"),
+    "params": ("expand_filter_compact", "edge_exists", "tile_membership",
+               "bitmap_superset", "signature_filter"),
     "live": ("expand_filter_compact", "edge_exists", "bitmap_superset",
              "signature_filter", "delta_merge"),
+    "gather": ("segment_gather",),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -109,7 +146,7 @@ class Recorder:
     def __init__(self, ops):
         self.ops = ops
         self.calls: dict[str, tuple] = {}
-        self.orig = {name: getattr(ops, name) for name in ops.KERNELS}
+        self.orig = {name: getattr(ops, name) for name in ENGINE_KERNELS}
 
     @staticmethod
     def rows(name, args) -> tuple[int, ...]:
@@ -236,9 +273,37 @@ def max_abs_err(torch, got, want) -> float:
         check(g_.shape == w_.shape and g_.dtype == w_.dtype,
               f"shape/dtype {tuple(g_.shape)} {g_.dtype} vs "
               f"{tuple(w_.shape)} {w_.dtype}")
-        d = (g_.long() - w_.long()).abs()
+        if g_.is_floating_point():
+            d = (g_.double() - w_.double()).abs()
+        else:
+            d = (g_.long() - w_.long()).abs()
         err = max(err, float(d.max().item()) if d.numel() else 0.0)
     return err
+
+
+def gather_tol(dtype: str, hot: int) -> float:
+    """``segment_gather``'s tolerance (rtol = atol), stated because its
+    sums run in another order than its plain version's: float32 1e-5 for
+    runs of at most 32 entries and 1e-4 for longer runs, bfloat16 2e-2
+    (the plain version rounds its float32 sum once, as the kernel does)."""
+    if dtype == "bfloat16":
+        return 2e-2
+    return 1e-5 if hot <= 32 else 1e-4
+
+
+def gather_close(torch, got, want, dtype: str, hot: int, what: str) -> float:
+    """Hold a ``segment_gather`` result against its plain version within
+    ``gather_tol``; returns the largest absolute difference."""
+    tol = gather_tol(dtype, hot)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    g_, w_ = got.float(), want.float()
+    check(bool(torch.isfinite(g_).all()), f"{what}: non-finite output")
+    check(bool(torch.allclose(g_, w_, rtol=tol, atol=tol)),
+          f"{what}: kernel differs from its plain version beyond "
+          f"rtol=atol={tol}")
+    return float((g_ - w_).abs().max().item()) if g_.numel() else 0.0
 
 
 # ------------------------------------------------------------------ phases
@@ -288,9 +353,14 @@ def synthetic_checks(torch, ops, ref) -> None:
         emask = t(np.array([5] + [0] * (w - 1), np.uint32))
         ebm = t(rng.integers(0, 2**32, (3000, w), dtype=np.uint64).astype(np.uint32))
         tdeg = t(deg)
-        for cap, bid in ((1 << 15, -1), (1 << 12, -1), (1 << 15, 7)):
-            args = (enbr, ebm, start, tdeg, offs, emask, bid, cap)
-            cases.append((f"expand_filter_compact w={w} cap={cap} bid={bid}",
+        for cap, bid, slot in ((1 << 15, [-1], 0), (1 << 12, [-1], 0),
+                               (1 << 15, [7], 0), (1 << 15, [3, 7, -1], 1),
+                               (1 << 15, [3, 7, -1], 2)):
+            # a parameter vector's element is a view at its slot
+            args = (enbr, ebm, start, tdeg, offs, emask,
+                    t(np.array(bid, np.int32))[slot], cap)
+            cases.append((f"expand_filter_compact w={w} cap={cap} "
+                          f"bound={bid}[{slot}]",
                           lambda args=args: ops.expand_filter_compact(*args),
                           lambda args=args: ref.expand_filter_compact_ref(*args)))
     def delta_case(k, mb, md, mt, run, mode):
@@ -342,6 +412,66 @@ def synthetic_checks(torch, ops, ref) -> None:
         err = max_abs_err(torch, got, plain())
         check(err == 0, f"{label}: kernel differs from its plain version")
     log(f"phase 3: {len(cases)} kernel checks bit-equal to the plain versions")
+    gather_checks(torch, ops, ref, rng)
+
+
+def gather_checks(torch, ops, ref, rng) -> None:
+    """Phase 3, ``segment_gather``: fixed and ragged, weighted and not,
+    float32 and bfloat16, against the plain versions within
+    ``gather_tol``.  Fixed ids lie in [-3, V + 3) (negative = padding,
+    >= V reads row V-1) with every third segment all padding; ragged ids in
+    [-V - 3, V + 3) and segments in [-2, S + 2) (negative ids count from
+    the end, outside segments are dropped) with every fourth segment
+    empty."""
+    dev = "cuda"
+    n = 0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for v, d, s, k, weighted in ((1, 1, 1, 1, False),
+                                     (1000, 64, 5000, 8, True),
+                                     (1000, 64, 5000, 8, False),
+                                     (3000, 100, 4000, 32, True),
+                                     (500, 200, 300, 5, True),
+                                     (200, 16, 100, 300, True)):
+            table = torch.from_numpy(rng.random((v, d), dtype=np.float32)) \
+                .to(dev, dt)
+            idx = rng.integers(-3, v + 3, size=(s, k)).astype(np.int32)
+            idx[::3] = -1
+            idx = torch.from_numpy(idx).to(dev)
+            w = (torch.from_numpy(rng.random((s, k), dtype=np.float32) + 0.5)
+                 .to(dev, dt) if weighted else None)
+            got = ops.segment_gather_fixed(table, idx, w)
+            torch.cuda.synchronize()
+            gather_close(torch, got,
+                         ref.segment_gather_fixed_ref(table, idx, w), dtype,
+                         k, f"segment_gather_fixed {dtype} V={v} D={d} "
+                         f"S={s} K={k} weighted={weighted}")
+            n += 1
+        for v, d, e, s, weighted in ((4, 3, 6, 3, False),
+                                     (2000, 64, 200000, 8000, True),
+                                     (2000, 100, 200000, 8000, False),
+                                     (500, 64, 300000, 1000, True),
+                                     (500, 128, 0, 10, True)):
+            table = torch.from_numpy(rng.random((v, d), dtype=np.float32)) \
+                .to(dev, dt)
+            idx = torch.from_numpy(
+                rng.integers(-v - 3, v + 3, size=e).astype(np.int32)).to(dev)
+            seg = rng.integers(-2, s + 2, size=e).astype(np.int32)
+            seg[(seg >= 0) & (seg % 4 == 1)] = s + 1
+            seg = torch.from_numpy(seg).to(dev)
+            w = (torch.from_numpy(rng.random(e, dtype=np.float32) + 0.5)
+                 .to(dev, dt) if weighted else None)
+            got = ops.segment_gather_sum(table, idx, seg, s, w)
+            torch.cuda.synchronize()
+            hot = -(-e // s)
+            gather_close(torch, got,
+                         ref.segment_gather_sum_ref(table, idx, seg, s, w),
+                         dtype, hot, f"segment_gather_sum {dtype} V={v} D={d} "
+                         f"E={e} S={s} weighted={weighted}")
+            n += 1
+    log(f"phase 3: {n} segment_gather checks within tolerance "
+        f"(rtol = atol: float32 1e-5 for runs <= 32 entries, 1e-4 for "
+        f"longer runs; bfloat16 2e-2)")
 
 
 def run_parity(torch, bench: dict) -> dict:
@@ -452,7 +582,260 @@ def run_full(torch, ops, scale: int):
     info["cpu_checked"] = list(LUBM_QUERIES)
     log(f"phase 5: all {len(LUBM_QUERIES)} counts and rows equal the CPU "
         f"run; peak device memory {info['peak_device_bytes']} B")
-    return info, st
+    return info, st, (g, maps, eng, cpu)
+
+
+# ------------------------------------------------------- query families
+
+# benchmarks/bench_serve.py:137 SAME_SHAPE_TMPL (its start is the constant)
+TMPL_F1 = """SELECT ?c ?t WHERE {{
+  {c} ub:takesCourse ?c .
+  ?t ub:teacherOf ?c .
+  ?t ub:worksFor ?d .
+}}"""
+# tests/test_param_batch.py TMPL_COURSE and TMPL_TWO_CONST
+TMPL_F2 = """SELECT ?x WHERE {{
+  ?x rdf:type ub:GraduateStudent .
+  ?x ub:takesCourse {c} .
+}}"""
+TMPL_F3 = """SELECT ?x ?y WHERE {{
+  ?x rdf:type ub:Student .
+  ?x ub:memberOf {d} .
+  ?x ub:takesCourse ?y .
+  ?y rdf:type ub:Course .
+  ?z ub:teacherOf ?y .
+  ?z ub:worksFor {d2} .
+}}"""
+# tests/test_torch_param.py TMPL_CYCLE_Q9 and TMPL_CYCLE_Q2: LUBM Q9 and Q2
+# with a hoisted constant; each keeps its triangle, so the batch joins a
+# non-tree edge (Q9's through tile_membership, Q2's into a university's
+# in-adjacency through edge_exists)
+TMPL_F4 = """SELECT ?x ?y ?z WHERE {{
+  ?x rdf:type ub:Student .
+  ?y rdf:type ub:Faculty .
+  ?z rdf:type ub:Course .
+  ?x ub:advisor ?y .
+  ?y ub:teacherOf ?z .
+  ?x ub:takesCourse ?z .
+  ?y ub:worksFor {d} .
+}}"""
+TMPL_F5 = """SELECT ?x ?y ?z WHERE {{
+  ?x rdf:type ub:GraduateStudent .
+  ?y rdf:type ub:University .
+  ?z rdf:type ub:Department .
+  ?x ub:memberOf ?z .
+  ?z ub:subOrganizationOf ?y .
+  ?x ub:undergraduateDegreeFrom ?y .
+  {p} ub:headOf ?z .
+}}"""
+BATCHES = (1, 2, 3, 64)
+MISSING = "ub:NoSuchStudent999"
+
+
+def family_queries(maps, n: int = 64) -> dict[str, list[str]]:
+    """``n`` members of each family.  F1's constants are a zipf(0.7) draw
+    over the first 512 student terms, seed 0, as
+    ``benchmarks/bench_serve.py:_skewed_constants`` draws them, with lane 5
+    replaced by a constant missing from the dictionary; F2's are graduate
+    courses, F3's departments (half the lanes with d2 = d), F4's
+    departments and F5's department heads (each department's first full
+    professor), drawn in that order with numpy seed 0."""
+    pat = re.compile(r"ub:((Undergraduate|Graduate)Student|GraduateCourse|"
+                     r"Dept|FullProfessor0\.Dept)\d")
+    pools: dict[str, list[str]] = {"Student": [], "GraduateCourse": [],
+                                   "Dept": [], "Chair": []}
+    for t in maps.dict.terms.to_str:
+        m = pat.match(t)
+        if m:
+            kind = "Student" if m.group(2) else \
+                "Chair" if m.group(1).startswith("Full") else m.group(1)
+            if kind != "Student" or len(pools["Student"]) < 512:
+                pools[kind].append(t)
+    students = pools["Student"]
+    weights = [1.0 / (i + 1) ** 0.7 for i in range(len(students))]
+    f1 = random.Random(0).choices(students, weights=weights, k=n)
+    f1[5] = MISSING
+    rng = np.random.default_rng(0)
+    courses, depts = pools["GraduateCourse"], pools["Dept"]
+    f2 = [courses[i] for i in rng.integers(0, len(courses), size=n)]
+    f3 = []
+    for i in rng.integers(0, len(depts), size=n):
+        d2 = depts[i] if rng.random() < 0.5 else \
+            depts[int(rng.integers(0, len(depts)))]
+        f3.append((depts[i], d2))
+    chairs = pools["Chair"]
+    f4 = [depts[i] for i in rng.integers(0, len(depts), size=n)]
+    f5 = [chairs[i] for i in rng.integers(0, len(chairs), size=n)]
+    return {"F1": [TMPL_F1.format(c=c) for c in f1],
+            "F2": [TMPL_F2.format(c=c) for c in f2],
+            "F3": [TMPL_F3.format(d=d, d2=d2) for d, d2 in f3],
+            "F4": [TMPL_F4.format(d=d) for d in f4],
+            "F5": [TMPL_F5.format(p=c) for c in f5]}
+
+
+def _base_stats(res) -> dict:
+    return res.stats["exec"]["branches"][0]["base"]
+
+
+def _same_answer(got, want, what: str, sort: bool = False,
+                 collect: str = "bindings") -> None:
+    """Equal counts and, for bindings, equal rows (in order, or sorted
+    where the two plans may order them differently)."""
+    check(got.count == want.count, f"{what}: {got.count} rows vs "
+                                   f"{want.count}")
+    if collect == "bindings":
+        a, b = got.rows, want.rows
+        if sort:
+            a, b = np.sort(a, axis=0), np.sort(b, axis=0)
+        check(np.array_equal(a, b), f"{what}: rows differ")
+
+
+def run_params(torch, ops, g, maps, eng, cpu):
+    """Phase 5c: the five families on the card through
+    ``execute_param_batch`` alone (a batch of one is ``execute_param``).
+    Returns the phase's record and ``finish``, which holds every lane
+    against its own ``execute_param`` run, the CPU run and the baked query,
+    and times the 64 solo runs, outside the params path's launch window."""
+    from repro_torch.core import ExecOpts, SparqlEngine
+    from repro_torch.serve.fingerprint import parameterize_query
+
+    def timed(fn):
+        s_ = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - s_) * 1e3
+
+    t0 = time.perf_counter()
+    fams = family_queries(maps)
+    info: dict = {"families": {}}
+    runs: dict = {}  # (family, lanes, collect) -> the batch's results
+    compiled: dict = {}
+    for fname, qs in fams.items():
+        pqs = [parameterize_query(q) for q in qs]
+        consts = [pq.consts for pq in pqs]
+        fam = eng.compile_param(pqs[0])
+        check(fam is not None, f"{fname}: the shape does not parameterize")
+        compiled[fname] = (fam, consts)
+        rec = {"n_params": fam.n_params,
+               "param_start": fam.plan.start_param_slot >= 0,
+               "nontree_steps": sum(1 for st in fam.plan.steps
+                                    if st.nontree), "runs": {}}
+        for b in BATCHES:
+            for collect in ("bindings", "count"):
+                before = dict(ops.launches)
+                res, ms = timed(lambda: eng.execute_param_batch(
+                    fam, consts[:b], collect))
+                launches = {k: ops.launches[k] - before[k] for k in before}
+                runs[fname, b, collect] = res
+                batched = [bool(_base_stats(r).get("batched")) for r in res]
+                # a lane rerun alone has run stats but is not batched (a
+                # missing constant's lane has no stats)
+                reruns = sum(1 for r, bt in zip(res, batched)
+                             if not bt and _base_stats(r).get("chunks"))
+                rec["runs"][f"{b}/{collect}"] = {
+                    "ms": ms, "launches": launches,
+                    "batched_lanes": sum(batched), "reruns": reruns,
+                    "counts": [int(r.count) for r in res]}
+        # warm: the 64-lane batch (its 64 solo runs are timed in finish())
+        reps = []
+        for _ in range(3):
+            before = dict(ops.launches)
+            _, ms = timed(lambda: eng.execute_param_batch(fam, consts))
+            reps.append((ms, {k: ops.launches[k] - before[k]
+                              for k in before}))
+        reps.sort(key=lambda x: x[0])
+        rec["batch64_ms"] = reps[1][0]
+        rec["batch64_launches"] = reps[1][1]
+        rec["sequential_fallback"] = \
+            rec["runs"]["64/bindings"]["batched_lanes"] == 0
+        info["families"][fname] = rec
+    # an overflowing lane reruns alone: capacities at a 16th of the
+    # estimate, F3's 64 lanes (held against the default engine in finish())
+    ovf = SparqlEngine(g, maps, opts=ExecOpts(cap_slack=1 / 16))
+    ofam = ovf.compile_param(parameterize_query(fams["F3"][0]))
+    ovf_res = ovf.execute_param_batch(ofam, compiled["F3"][1])
+    info["batches_s"] = time.perf_counter() - t0
+
+    def finish() -> None:
+        t1 = time.perf_counter()
+        for fname, qs in fams.items():
+            fam, consts = compiled[fname]
+            cfam = cpu.compile_param(parameterize_query(qs[0]))
+            rec = info["families"][fname]
+            for (f, b, collect), res in runs.items():
+                if f != fname:
+                    continue
+                for i, r in enumerate(res):
+                    what = f"{fname} B={b} {collect} lane {i}"
+                    _same_answer(r, eng.execute_param(fam, consts[i],
+                                                      collect),
+                                 f"{what} vs its execute_param",
+                                 collect=collect)
+                    _same_answer(r, cpu.execute_param(cfam, consts[i],
+                                                      collect),
+                                 f"{what} vs the CPU run", collect=collect)
+                    _same_answer(r, eng.query(qs[i], collect=collect),
+                                 f"{what} vs the baked query", sort=True,
+                                 collect=collect)
+                    if collect == "bindings":
+                        check(r.rows.shape == (r.count, len(r.variables))
+                              and bool(((r.rows >= -1)
+                                        & (r.rows < g.n_vertices)).all()),
+                              f"{what}: rows of the wrong shape or range")
+            check(rec["runs"]["64/bindings"]["counts"][5] == 0
+                  or fname != "F1",
+                  "F1: the missing constant's lane is not empty")
+            # a parameterized step that is fused reads its constant on the
+            # device in the solo run (expand_filter_compact's bound id)
+            kernels = _base_stats(eng.execute_param(fam, consts[0]))[
+                "step_kernels"]
+            rec["fused_param_steps"] = sum(
+                1 for st, k in zip(fam.plan.steps, kernels)
+                if st.param_slot >= 0 and k == "expand_filter")
+            check(fname != "F3" or rec["fused_param_steps"] > 0,
+                  "F3: no parameterized step ran through the fused kernel")
+            solo = sorted(timed(lambda: [eng.execute_param(fam, c)
+                                         for c in consts])[1]
+                          for _ in range(3))
+            rec["solo64_ms"] = solo[1]
+            log(f"  {fname}: 64 lanes {rec['batch64_ms']:.1f} ms batched vs "
+                f"{rec['solo64_ms']:.1f} ms solo; launches per batch "
+                f"{ {k: v for k, v in rec['batch64_launches'].items() if v} };"
+                f" batched lanes "
+                f"{rec['runs']['64/bindings']['batched_lanes']}/64; "
+                f"non-tree steps {rec['nontree_steps']}; sequential fallback "
+                f"{rec['sequential_fallback']}")
+        check(info["families"]["F4"]["nontree_steps"] > 0
+              and info["families"]["F5"]["nontree_steps"] > 0,
+              "F4/F5: no non-tree step in the plan")
+        # one set of launches per step: a batched family's launches do not
+        # grow with its lanes
+        flat = [f for f, r in info["families"].items()
+                if r["runs"]["64/bindings"]["batched_lanes"]
+                and not r["runs"]["64/bindings"]["reruns"]
+                and not r["runs"]["2/bindings"]["reruns"]
+                and r["runs"]["2/bindings"]["launches"]
+                == r["batch64_launches"]
+                and sum(r["batch64_launches"].values())]
+        check(bool(flat), "no family ran its 64 lanes in one set of "
+                          "launches per step")
+        info["one_launch_set_families"] = flat
+        fam, consts = compiled["F3"]
+        rerun = 0
+        for i, r in enumerate(ovf_res):
+            _same_answer(r, eng.execute_param(fam, consts[i]),
+                         f"F3 slack 1/16 lane {i}")
+            rerun += "batched" not in _base_stats(r)
+        check(rerun > 0, "no F3 lane overflowed at a 16th of the estimate")
+        info["overflow_reruns"] = rerun
+        info["check_s"] = time.perf_counter() - t1
+        info["total_s"] = time.perf_counter() - t0
+        log(f"phase 5c: every lane of F1-F5 at B={BATCHES} equals its own "
+            f"run, the CPU run and the baked query; {rerun} of 64 F3 lanes "
+            f"overflowed and reran alone at slack 1/16; one launch set per "
+            f"step: {flat}; {info['total_s']:.1f} s")
+
+    return info, finish
 
 
 LIVE_MIX = ("Q1", "Q2", "Q6", "Q9", "Q14")  # benchmarks/bench_update.py
@@ -652,6 +1035,24 @@ def run_live(torch, ops, st, scale: int) -> dict:
             f"{sorted(count_warm)[1]:.1f} ms launches {per_query}")
     info["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
     info["queries"] = queries
+
+    # the F1 family on the final snapshot: one 64-lane batch, held against
+    # its members' own runs and against the CPU run in finish()
+    from repro_torch.serve.fingerprint import parameterize_query
+
+    pqs = [parameterize_query(q) for q in family_queries(maps)["F1"]]
+    fam = eng.compile_param(pqs[0])
+    check(fam is not None, "live F1: the shape does not parameterize")
+    batch, ms = timed(lambda: eng.execute_param_batch(
+        fam, [pq.consts for pq in pqs]))
+    batched = [r for r in batch if _base_stats(r).get("batched")]
+    check(bool(batched), "live F1: no lane was batched")
+    info["family_batch"] = {
+        "ms": ms, "counts": [int(r.count) for r in batch],
+        "batched_lanes": len(batched),
+        "kernels": _base_stats(batched[0]).get("step_kernels")}
+    log(f"  live F1 batch of 64: {ms:.1f} ms, {len(batched)} lanes batched, "
+        f"step kernels {info['family_batch']['kernels']}")
     info["stream_s"] = time.perf_counter() - t0
 
     def finish() -> None:
@@ -663,6 +1064,12 @@ def run_live(torch, ops, st, scale: int) -> dict:
             check(want.count == queries[name]["count"] and
                   np.array_equal(want.rows, gpu_rows[name]),
                   f"live {name}: card answer differs from the CPU run")
+        cfam = cpu.compile_param(pqs[0])
+        for i, (r, pq) in enumerate(zip(batch, pqs)):
+            _same_answer(r, eng.execute_param(fam, pq.consts),
+                         f"live F1 lane {i} vs its execute_param")
+            _same_answer(r, cpu.execute_param(cfam, pq.consts),
+                         f"live F1 lane {i} vs the CPU run")
         info["cpu_check_s"] = time.perf_counter() - t1
 
         # held against a from-scratch transform of the final triple set
@@ -710,7 +1117,7 @@ def kernel_table(torch, ops, ref, rec: Recorder,
         "delta_merge": ref.delta_merge_ref,
     }
     table = []
-    for name in ops.KERNELS:
+    for name in ENGINE_KERNELS:
         check(name in rec.calls, f"{name}: no call recorded on the main path")
         rows, args, kw = rec.calls[name]
         kern = getattr(ops, name)
@@ -741,6 +1148,151 @@ def kernel_table(torch, ops, ref, rec: Recorder,
         log(f"phase 6: {name}: rows {rows} kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms bound {table[-1]['bound_ms']:.4f} ms")
     return table
+
+
+# the users' shapes of segment_gather (src/repro/configs/): DLRM RM-2's
+# largest table (dlrm_rm2.py VOCABS[0] x embed_dim) looked up by a
+# serve_bulk batch (common.py RECSYS_SHAPES) at hotness 8, and GCN
+# aggregation over ogb_products (common.py GNN_SHAPES)
+RM2 = dict(rows=10_000_000, dim=64, bags=262_144, hotness=8)
+OGB = dict(nodes=2_449_029, edges=61_859_140, feat=100)
+
+
+def gather_inputs(torch, seed: int = 0) -> dict:
+    """Random tables and ids at the users' shapes, made on the card from
+    ``seed``: uniform ids (no padding) and per-entry weights in
+    [0.5, 1.5) (DLRM per-sample weights; GCN edge normalization)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev = "cuda"
+
+    def ids(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    bags = (RM2["bags"], RM2["hotness"])
+    return {
+        "fixed": (rand((RM2["rows"], RM2["dim"])), ids(RM2["rows"], bags),
+                  rand(bags) + 0.5),
+        "ragged": (rand((OGB["nodes"], OGB["feat"])),
+                   ids(OGB["nodes"], (OGB["edges"],)),
+                   ids(OGB["nodes"], (OGB["edges"],)),
+                   rand((OGB["edges"],)) + 0.5),
+    }
+
+
+def drive_gather(torch, ops, inputs) -> dict:
+    """The gather path: each ``segment_gather`` entry point once at its
+    users' shape."""
+    table, idx, w = inputs["fixed"]
+    feat, src, dst, ew = inputs["ragged"]
+    out = {"fixed": ops.segment_gather_fixed(table, idx, w),
+           "ragged": ops.segment_gather_sum(feat, src, dst, OGB["nodes"], ew)}
+    torch.cuda.synchronize()
+    return out
+
+
+def gather_row(torch, ops, ref, inputs, outs, by_path) -> dict:
+    """Phase 6, ``segment_gather``: both entry points held against their
+    plain versions (the ragged one summed over edge chunks, since the plain
+    version at once would gather a 24.7 GB ``table[indices]``) and timed
+    beside them and beside ``embedding_bag``; the kernel-line row is the
+    fixed call, the ragged numbers go beside it."""
+    import torch.nn.functional as F
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    table, idx, w = inputs["fixed"]
+    want = ref.segment_gather_fixed_ref(table, idx, w)
+    err = gather_close(torch, outs["fixed"], want, "float32", RM2["hotness"],
+                       "segment_gather_fixed at the RM-2 shape")
+    lib = F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
+    gather_close(torch, lib, want, "float32", RM2["hotness"],
+                 "embedding_bag at the RM-2 shape")
+    del want, lib
+    ms = time_ms(torch, lambda: ops.segment_gather_fixed(table, idx, w))
+    plain_ms = time_ms(torch, lambda: ref.segment_gather_fixed_ref(
+        table, idx, w), reps=5)
+    library_ms = time_ms(torch, lambda: F.embedding_bag(
+        idx, table, mode="sum", per_sample_weights=w))
+    rows_read = torch.unique(idx).numel()
+    byts = nb(idx) + nb(w) + rows_read * RM2["dim"] * 4 \
+        + RM2["bags"] * RM2["dim"] * 4
+    nops = 2 * idx.numel() * RM2["dim"]
+    by = "bytes" if byts / PEAK_BYTES_S >= nops / PEAK_OPS_S else "operations"
+
+    feat, src, dst, ew = inputs["ragged"]
+    n = OGB["nodes"]
+    chunk = 1 << 22
+
+    def plain_ragged():
+        acc = torch.zeros((n, OGB["feat"]), device="cuda")
+        for lo in range(0, src.shape[0], chunk):
+            acc += ref.segment_gather_sum_ref(feat, src[lo:lo + chunk],
+                                              dst[lo:lo + chunk], n,
+                                              ew[lo:lo + chunk])
+        return acc
+
+    hot = int(torch.bincount(dst.long(), minlength=n).max().item())
+    r_err = gather_close(torch, outs["ragged"], plain_ragged(), "float32",
+                         hot, "segment_gather_sum at the ogb_products shape")
+    # the kernel alone, on the entries its wrapper sorted
+    seg, order = torch.sort(dst, stable=True)
+    offsets = torch.searchsorted(
+        seg, torch.arange(n + 1, dtype=torch.int32, device="cuda"),
+        out_int32=True)
+    idx_s, w_s = src[order].contiguous(), ew[order].contiguous()
+    del seg, order
+    lib_r = F.embedding_bag(idx_s, feat, offsets[:-1].long(), mode="sum",
+                            per_sample_weights=w_s)
+    gather_close(torch, lib_r, outs["ragged"], "float32", hot,
+                 "embedding_bag at the ogb_products shape")
+    del lib_r
+    r_ms = time_ms(torch, lambda: ops.segment_gather_sum(feat, src, dst, n,
+                                                         ew))
+    r_kernel_ms = time_ms(torch, lambda: ops._gather_launch(
+        feat, idx_s, w_s, offsets, 0, n))
+    r_plain_ms = time_ms(torch, plain_ragged, reps=3)
+    r_library_ms = time_ms(torch, lambda: F.embedding_bag(
+        idx_s, feat, offsets[:-1].long(), mode="sum", per_sample_weights=w_s))
+    r_rows = torch.unique(src).numel()
+    r_bytes = nb(src) + nb(dst) + nb(ew) + r_rows * OGB["feat"] * 4 \
+        + n * OGB["feat"] * 4
+    r_ops = 2 * src.numel() * OGB["feat"]
+    source, replaces = KERNEL_INFO["segment_gather"]
+    row = {
+        "name": "segment_gather", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(int(c["segment_gather"]) for c in by_path.values()),
+        "launches_by_path": {p: int(c["segment_gather"])
+                             for p, c in by_path.items()},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(byts / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3,
+        "bound_by": by, "library_ms": library_ms,
+        "shape_rows": (RM2["bags"], RM2["hotness"]), "bytes": byts,
+        "ops": nops, "shapes": [list(table.shape), list(idx.shape),
+                                list(w.shape)],
+        "tolerance": gather_tol("float32", RM2["hotness"]),
+        "ragged": {
+            "shape": OGB, "max_run": hot, "max_abs_err": r_err,
+            "tolerance": gather_tol("float32", hot),
+            "ms": r_ms, "kernel_ms": r_kernel_ms, "plain_ms": r_plain_ms,
+            "library_ms": r_library_ms,
+            "bound_ms": max(r_bytes / PEAK_BYTES_S,
+                            r_ops / PEAK_OPS_S) * 1e3,
+            "bytes": r_bytes, "ops": r_ops},
+    }
+    log(f"phase 6: segment_gather fixed {RM2}: kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms embedding_bag {library_ms:.4f} ms bound "
+        f"{row['bound_ms']:.4f} ms; ragged {OGB}: wrapper {r_ms:.4f} ms "
+        f"kernel {r_kernel_ms:.4f} ms plain {r_plain_ms:.4f} ms "
+        f"embedding_bag {r_library_ms:.4f} ms bound "
+        f"{row['ragged']['bound_ms']:.4f} ms")
+    return row
 
 
 def main(argv=None) -> int:
@@ -790,6 +1342,7 @@ def main(argv=None) -> int:
         rec.install()
         ops.reset_launches()
         out = drive()
+        torch.cuda.synchronize()
         by_path[path] = dict(ops.launches)
         rec.remove()
         log(f"{path} path launches: {by_path[path]}")
@@ -798,18 +1351,26 @@ def main(argv=None) -> int:
                   f"{name} was never launched on the {path} path")
         return out
 
-    parity, (full, st) = window("static", lambda: (
+    parity, (full, st, static) = window("static", lambda: (
         run_parity(torch, bench), run_full(torch, ops, args.scale)))
+    params, finish = window("params", lambda: run_params(torch, ops,
+                                                         *static))
+    finish()
+    del static, finish
     live, finish = window("live", lambda: run_live(torch, ops, st,
                                                    args.scale))
     finish()
     del st, finish
+    inputs = gather_inputs(torch)
+    outs = window("gather", lambda: drive_gather(torch, ops, inputs))
 
     table = kernel_table(torch, ops, ref, rec, by_path)
+    table.append(gather_row(torch, ops, ref, inputs, outs, by_path))
+    del inputs, outs
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "ptxas": ptxas, "parity": parity, "full": full, "live": live,
-              "kernels": table,
+              "ptxas": ptxas, "parity": parity, "full": full,
+              "params": params, "live": live, "kernels": table,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -22,6 +22,14 @@ probe the base, tombstone and insert CSRs.  Kernels dispatch by the
 tensors' device (:mod:`repro_torch.kernels.ops`): on CUDA the hand-written
 Hopper kernels, on the CPU their plain versions.
 
+A parameterized plan (one per query shape) reads its constants from a
+``params`` vector on the device.  ``Executor.run_batch`` answers many
+constant vectors of one shape with a batch program (``build_batch_fn``):
+the reference ``vmap``s its chunk program over lanes; here the lanes' rows
+form one table with a lane index per row, so each step is one set of
+kernel launches for the whole batch, with per-lane capacities, freezes and
+counters.
+
 Nothing inside a chunk program reads a device value back to the host:
 compaction is a cumsum-position scatter, and every per-step counter goes
 into one packed int64 vector that the host reads once per chunk program,
@@ -288,7 +296,10 @@ def _plan_arrays(g: LabeledGraph, plan: ExecPlan, use_prune: bool,
         flat_out = dev(g.out.indptr_el.reshape(-1))
         flat_in = dev(g.inc.indptr_el.reshape(-1))
     for s in plan.steps:
-        d: dict[str, torch.Tensor] = {}
+        # the fused kernel reads a baked bound id on the device, as it reads
+        # a parameterized one from ``params``
+        d: dict[str, torch.Tensor] = {
+            "bound_id": _scalar(s.bound_id, device)}
         if s.restart_candidates is not None:
             cands = s.restart_candidates.astype(np.int32)
             d["restart"] = dev(cands)
@@ -452,8 +463,9 @@ def _cmp(vals: torch.Tensor, op: str, c: float) -> torch.Tensor:
 class ProgramKey(NamedTuple):
     """A chunk program's identity, as the reference keys its compile cache:
     the plan, the step window and its capacities, the input width, and the
-    options' and device graph's keys.  The delta arrays' sizes are not in
-    it: an eager program takes any size."""
+    options' and device graph's keys; a batch program (``run_batch``) also
+    its lane count and whether each lane has its own start row.  The delta
+    arrays' sizes are not in it: an eager program takes any size."""
     plan: Any
     caps: tuple
     n_in: int
@@ -463,6 +475,156 @@ class ProgramKey(NamedTuple):
     stop: int
     opts: tuple
     graph: tuple
+    lanes: int = 0  # 0: a single-query program
+    per_lane_start: bool = False
+
+
+def _check_caps(caps, n_in: int, start_step: int, stop: int) -> None:
+    for si in range(start_step, stop):
+        prev = n_in if si == start_step else caps[si - 1]
+        if caps[si] < prev:
+            raise ValueError(
+                "capacity schedule must be monotone non-decreasing "
+                f"(step {si}: {caps[si]} < {prev})")
+
+
+class _StepSrc(NamedTuple):
+    """Where a step's candidates come from, per input row."""
+    nbr_src: torch.Tensor
+    start: torch.Tensor
+    deg: torch.Tensor  # 0 for rows that are not alive
+    deg_b: torch.Tensor | None  # base part of a merged slice
+    start_d: torch.Tensor | None
+    t_lo: torch.Tensor | None
+    t_hi: torch.Tensor | None
+    merged: bool  # live store: base slice ++ delta slice, tombstones masked
+
+
+def _step_src(dg: DeviceGraph, step: Step, sarr, b: torch.Tensor,
+              alive: torch.Tensor) -> _StepSrc:
+    dmode = dg.delta_mode
+    arrays = dg.arrays
+    n = dg.pad_vertices if dmode else dg.n_vertices
+    # delta overlay per-step inputs (snapshot mode only)
+    d_iptr = sarr.get("d_iptr") if dmode else None
+    t_iptr = sarr.get("t_iptr") if dmode else None
+    start_d = deg_b = t_lo = t_hi = None
+    if step.restart_candidates is not None:
+        deg = torch.where(alive, sarr["restart_n"], 0)
+        nbr_src = sarr["restart"]
+        start = torch.zeros(alive.shape[0], dtype=I32, device=alive.device)
+        return _StepSrc(nbr_src, start, deg, None, None, None, None, False)
+    if step.elabel >= 0:
+        iptr = sarr["iptr"]
+        nbr_src = arrays["out_nbr_el" if step.forward else "in_nbr_el"]
+    else:  # predicate variable: plain CSR
+        iptr = sarr["all_iptr"] if dmode else \
+            arrays["out_indptr_all" if step.forward else "in_indptr_all"]
+        nbr_src = arrays["out_nbr_all" if step.forward else "in_nbr_all"]
+    vp = b[:, step.parent].clamp(0, n - 1)
+    start = iptr[vp]
+    deg_b = iptr[vp + 1] - start
+    deg = deg_b
+    if d_iptr is not None:
+        start_d = d_iptr[vp]
+        deg = deg + (d_iptr[vp + 1] - start_d)
+    if t_iptr is not None:
+        t_lo, t_hi = t_iptr[vp], t_iptr[vp + 1]
+    deg = torch.where(alive, deg, 0)
+    return _StepSrc(nbr_src, start, deg, deg_b, start_d, t_lo, t_hi,
+                    d_iptr is not None or t_iptr is not None)
+
+
+def _unfused_ok(dg: DeviceGraph, plan: ExecPlan, step: Step, sarr,
+                opts: ExecOpts, src: _StepSrc, row, j, valid, b, p, org,
+                bid: torch.Tensor | None):
+    """An unfused step after ``ragged_expand``: resolve each slot's
+    candidate, extend the rows and run every filter.  ``bid`` is the
+    parameterized bound id (a scalar, or one per slot), ``None`` for a
+    baked step.  Returns ``(b_rows, p_rows, org_rows, ok, pre_sig,
+    post_sig)``; the last two are the masks just before and just after the
+    signature probe (``None`` when the step has none)."""
+    dmode = dg.delta_mode
+    arrays = dg.arrays
+    n = dg.pad_vertices if dmode else dg.n_vertices
+    nbr_src = src.nbr_src
+    el_new = None
+    if src.merged:
+        # live store: position j < deg_b reads the base CSR (minus
+        # tombstones), later positions read the delta
+        zero = torch.zeros_like(row)
+        sd = src.start_d[row] if src.start_d is not None else zero
+        tl = src.t_lo[row] if src.t_lo is not None else zero
+        th = src.t_hi[row] if src.t_hi is not None else zero
+        d_nbr = sarr.get("d_nbr")
+        if step.elabel >= 0:
+            v_new, ok = kops.delta_merge(
+                nbr_src, d_nbr, sarr.get("t_nbr"), src.start[row],
+                src.deg_b[row], sd, tl, th, j, valid,
+                n_iters=dg.max_log_deg)
+        else:
+            lab_src = arrays["out_lab_all" if step.forward else "in_lab_all"]
+            v_new, el_new, ok = kops.delta_merge_labeled(
+                nbr_src, lab_src, d_nbr, sarr.get("d_lab"),
+                sarr.get("t_key"), src.start[row], src.deg_b[row], sd, tl,
+                th, j, valid, n_elabels=dg.n_elabels,
+                n_iters=dg.max_log_deg)
+    else:
+        idx = (src.start[row] + j).clamp(0, nbr_src.shape[0] - 1)
+        v_new = torch.where(valid, nbr_src[idx], -1)
+        ok = valid
+
+    b_rows = b[row]
+    p_rows = p[row]
+    org_rows = org[row]
+    b_rows[:, step.u] = v_new
+
+    if step.pvar_idx >= 0:  # tree-edge M_e binding
+        if el_new is None:
+            lab_src = arrays["out_lab_all" if step.forward else "in_lab_all"]
+            el_new = torch.where(valid, lab_src[idx], -1)
+        prev = p_rows[:, step.pvar_idx].clone()
+        ok = ok & ((prev < 0) | (prev == el_new))
+        p_rows[:, step.pvar_idx] = torch.where(prev < 0, el_new, prev)
+    if bid is not None:
+        ok = ok & (v_new == bid)
+    elif step.bound_id >= 0:
+        ok = ok & (v_new == step.bound_id)
+    vsafe = v_new.clamp(0, n - 1)
+    bitmap_src = sarr.get("bitmap") if dmode else arrays["label_bitmap"]
+    if "label_mask" in sarr:
+        ok = ok & kops.bitmap_superset(bitmap_src[vsafe], sarr["label_mask"])
+    pre_sig = post_sig = None
+    sig_mask = sarr.get("sig_mask")
+    sig_src = (sarr.get("sig") if dmode else arrays.get("sig")) \
+        if sig_mask is not None else None
+    if sig_src is not None:
+        pre_sig = ok
+        ok = ok & kops.signature_filter(sig_src, vsafe, sig_mask)
+        post_sig = ok
+    if (step.min_out_ntypes or step.min_in_ntypes) and not dmode:
+        # degree/NLF prunes use base-build summaries that no delta
+        # maintains, so snapshots skip them (they are pure optimizations)
+        ok = ok & (arrays["out_degree"][vsafe] >= step.min_out_ntypes)
+        ok = ok & (arrays["in_degree"][vsafe] >= step.min_in_ntypes)
+    if "nlf_out_mask" in sarr and "nlf_out" in arrays and not dmode:
+        ok = ok & kops.bitmap_superset(arrays["nlf_out"][vsafe],
+                                       sarr["nlf_out_mask"])
+        ok = ok & kops.bitmap_superset(arrays["nlf_in"][vsafe],
+                                       sarr["nlf_in_mask"])
+    num_src = sarr.get("numeric") if dmode else arrays.get("numeric_value")
+    if step.num_filters and num_src is not None:
+        vals = num_src[vsafe]
+        for op, cval in step.num_filters:
+            ok = ok & _cmp(vals, op, cval)
+    if opts.semantics == "iso":
+        for w in plan.order:
+            if w == step.u:
+                break
+            ok = ok & (b_rows[:, w] != v_new)
+    if step.nontree:
+        ok = ok & _nontree_mask(dg, step, sarr, b_rows, p_rows, v_new, opts)
+    return b_rows, p_rows, org_rows, ok, pre_sig, post_sig
 
 
 def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
@@ -484,6 +646,12 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
     non-decreasing from ``n_in`` so the freeze carry is lossless.  With
     ``collect="count"`` the final step only tallies survivors.
 
+    ``params`` (int32 ``[plan.n_params]`` on the device, ``None`` for a
+    fully baked plan) is an input of the program: a step with
+    ``param_slot >= 0`` checks its new binding against
+    ``params[param_slot]`` (the fused kernel reads it on the device), so
+    one program serves every constant vector of the shape.
+
     The program returns ``(b, p, org, count, scalars)``: the binding table,
     pvar table and origins (device tensors), the device count, and one
     int64 vector ``[count, ovf_step, totals..., kepts..., pins...,
@@ -496,16 +664,10 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
     n_steps = len(steps)
     stop = n_steps if stop_step is None else stop_step
     dmode = dg.delta_mode
-    has_numeric = "numeric_value" in dg.arrays
-    n = dg.pad_vertices if dmode else dg.n_vertices
     arrays = dg.arrays
-    for si in range(start_step, stop):
-        prev = n_in if si == start_step else caps[si - 1]
-        if caps[si] < prev:
-            raise ValueError("capacity schedule must be monotone "
-                             f"non-decreasing (step {si}: {caps[si]} < {prev})")
+    _check_caps(caps, n_in, start_step, stop)
 
-    def fn(chunk, chunk_count, p_init, org_init, sarrs):
+    def fn(chunk, chunk_count, p_init, org_init, params, sarrs):
         dev = chunk.device
         if not table_input:
             b = torch.full((n_in, nq), -1, dtype=I32, device=dev)
@@ -530,38 +692,8 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
             cap = caps[si]
             active = ovf_step == n_steps
             alive = torch.arange(cap_prev, dtype=I32, device=dev) < count
-
-            # delta overlay per-step inputs (snapshot mode only)
-            d_iptr = sarr.get("d_iptr") if dmode else None
-            t_iptr = sarr.get("t_iptr") if dmode else None
-            start_d = deg_b = t_lo = t_hi = None
-            if step.restart_candidates is not None:
-                deg = torch.where(alive, sarr["restart_n"], 0)
-                nbr_src = sarr["restart"]
-                start = torch.zeros(cap_prev, dtype=I32, device=dev)
-                d_iptr = t_iptr = None
-            else:
-                if step.elabel >= 0:
-                    iptr = sarr["iptr"]
-                    nbr_src = arrays["out_nbr_el" if step.forward
-                                     else "in_nbr_el"]
-                else:  # predicate variable: plain CSR
-                    iptr = sarr["all_iptr"] if dmode else \
-                        arrays["out_indptr_all" if step.forward
-                               else "in_indptr_all"]
-                    nbr_src = arrays["out_nbr_all" if step.forward
-                                     else "in_nbr_all"]
-                vp = b[:, step.parent].clamp(0, n - 1)
-                start = iptr[vp]
-                deg_b = iptr[vp + 1] - start
-                deg = deg_b
-                if d_iptr is not None:
-                    start_d = d_iptr[vp]
-                    deg = deg + (d_iptr[vp + 1] - start_d)
-                if t_iptr is not None:
-                    t_lo, t_hi = t_iptr[vp], t_iptr[vp + 1]
-                deg = torch.where(alive, deg, 0)
-            merged = d_iptr is not None or t_iptr is not None
+            src = _step_src(dg, step, sarr, b, alive)
+            deg = src.deg
 
             # int64 prefix sums: the total cannot wrap, so an oversized
             # expansion is always reported as overflow
@@ -573,10 +705,9 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
             ovf_step = torch.where(ovf_here, si, ovf_step)
             count_only = collect == "count" and si == n_steps - 1
 
-            bitmap_src = sarr.get("bitmap") if dmode \
-                else arrays["label_bitmap"]
             p_in = p_out = None
-            if _fused_eligible(step, opts) and not count_only and not merged:
+            if _fused_eligible(step, opts) and not count_only \
+                    and not src.merged:
                 fmask = sarr.get("fmask")
                 fb_src = (sarr.get("filter_bitmap") if dmode
                           else arrays.get("filter_bitmap")) \
@@ -587,14 +718,17 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
                     filt_bitmap, filt_mask = fb_src, fmask
                     p_in = total
                 else:
-                    filt_bitmap = bitmap_src
+                    filt_bitmap = sarr.get("bitmap") if dmode \
+                        else arrays["label_bitmap"]
                     filt_mask = sarr.get("label_mask")
                     if filt_mask is None:
-                        filt_mask = torch.zeros(bitmap_src.shape[1],
+                        filt_mask = torch.zeros(filt_bitmap.shape[1],
                                                 dtype=I32, device=dev)
+                bound = params[step.param_slot] if step.param_slot >= 0 \
+                    else sarr["bound_id"]
                 v_out, row_sel, kept = kops.expand_filter_compact(
-                    nbr_src, filt_bitmap, start, deg, offs, filt_mask,
-                    step.bound_id, cap)
+                    src.nbr_src, filt_bitmap, src.start, deg, offs,
+                    filt_mask, bound, cap)
                 if p_in is not None:
                     p_out = kept
                 # gather-based table build: when frozen, the identity index
@@ -609,89 +743,14 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
                 count = torch.where(keep_new, kept, count)
             else:
                 row, j, valid = kops.ragged_expand(offs, deg, cap)
-                el_new = None
-                if merged:
-                    # live store: position j < deg_b reads the base CSR
-                    # (minus tombstones), later positions read the delta
-                    zero = torch.zeros_like(row)
-                    sd = start_d[row] if start_d is not None else zero
-                    tl = t_lo[row] if t_lo is not None else zero
-                    th = t_hi[row] if t_hi is not None else zero
-                    d_nbr = sarr.get("d_nbr")
-                    if step.elabel >= 0:
-                        v_new, ok = kops.delta_merge(
-                            nbr_src, d_nbr, sarr.get("t_nbr"),
-                            start[row], deg_b[row], sd, tl, th, j, valid,
-                            n_iters=dg.max_log_deg)
-                    else:
-                        lab_src = arrays["out_lab_all" if step.forward
-                                         else "in_lab_all"]
-                        v_new, el_new, ok = kops.delta_merge_labeled(
-                            nbr_src, lab_src, d_nbr,
-                            sarr.get("d_lab"), sarr.get("t_key"),
-                            start[row], deg_b[row], sd, tl, th, j, valid,
-                            n_elabels=dg.n_elabels, n_iters=dg.max_log_deg)
-                else:
-                    idx = (start[row] + j).clamp(0, nbr_src.shape[0] - 1)
-                    v_new = torch.where(valid, nbr_src[idx], -1)
-                    ok = valid
-
-                b_rows = b[row]
-                p_rows = p[row]
-                org_rows = org[row]
-                b_rows[:, step.u] = v_new
-
-                if step.pvar_idx >= 0:  # tree-edge M_e binding
-                    if el_new is None:
-                        lab_src = arrays["out_lab_all" if step.forward
-                                         else "in_lab_all"]
-                        el_new = torch.where(valid, lab_src[idx], -1)
-                    prev = p_rows[:, step.pvar_idx].clone()
-                    ok = ok & ((prev < 0) | (prev == el_new))
-                    p_rows[:, step.pvar_idx] = torch.where(prev < 0, el_new,
-                                                           prev)
-                if step.bound_id >= 0:
-                    ok = ok & (v_new == step.bound_id)
-                vsafe = v_new.clamp(0, n - 1)
-                if "label_mask" in sarr:
-                    ok = ok & kops.bitmap_superset(bitmap_src[vsafe],
-                                                   sarr["label_mask"])
-                sig_mask = sarr.get("sig_mask")
-                sig_src = (sarr.get("sig") if dmode else arrays.get("sig")) \
-                    if sig_mask is not None else None
-                if sig_src is not None:
-                    p_in = ok.sum(dtype=I32)
-                    ok = ok & kops.signature_filter(sig_src, vsafe, sig_mask)
-                    p_out = ok.sum(dtype=I32)
-                if (step.min_out_ntypes or step.min_in_ntypes) and not dmode:
-                    # degree/NLF prunes use base-build summaries that no
-                    # delta maintains, so snapshots skip them (they are pure
-                    # optimizations)
-                    ok = ok & (arrays["out_degree"][vsafe]
-                               >= step.min_out_ntypes)
-                    ok = ok & (arrays["in_degree"][vsafe]
-                               >= step.min_in_ntypes)
-                if "nlf_out_mask" in sarr and "nlf_out" in arrays \
-                        and not dmode:
-                    ok = ok & kops.bitmap_superset(arrays["nlf_out"][vsafe],
-                                                   sarr["nlf_out_mask"])
-                    ok = ok & kops.bitmap_superset(arrays["nlf_in"][vsafe],
-                                                   sarr["nlf_in_mask"])
-                num_src = sarr.get("numeric") if dmode else (
-                    arrays["numeric_value"] if has_numeric else None)
-                if step.num_filters and num_src is not None:
-                    vals = num_src[vsafe]
-                    for op, cval in step.num_filters:
-                        ok = ok & _cmp(vals, op, cval)
-                if opts.semantics == "iso":
-                    for w in plan.order:
-                        if w == step.u:
-                            break
-                        ok = ok & (b_rows[:, w] != v_new)
-                if step.nontree:
-                    ok = ok & _nontree_mask(dg, step, sarr, b_rows, p_rows,
-                                            v_new, opts)
-
+                bid = params[step.param_slot] if step.param_slot >= 0 \
+                    else None
+                b_rows, p_rows, org_rows, ok, pre_sig, post_sig = \
+                    _unfused_ok(dg, plan, step, sarr, opts, src, row, j,
+                                valid, b, p, org, bid)
+                if pre_sig is not None:
+                    p_in = pre_sig.sum(dtype=I32)
+                    p_out = post_sig.sum(dtype=I32)
                 oki = ok.to(I32)
                 kept = oki.sum(dtype=I32)
                 if count_only:
@@ -730,6 +789,119 @@ def build_chunk_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
         scalars = torch.stack([count.to(I64), ovf_step.to(I64),
                                *totals, *kepts, *pins, *pouts])
         return b, p, org, count, scalars
+
+    return fn
+
+
+def _lane_sums(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Per-lane sums of ``x`` over lane-major runs: lane ``l`` owns
+    ``x[bounds[l]:bounds[l+1]]`` (int64 prefix-sum differences)."""
+    c = torch.cumsum(x, 0, dtype=I64)
+    c = torch.cat([c.new_zeros(1), c])
+    return c[bounds[1:]] - c[bounds[:-1]]
+
+
+def build_batch_fn(dg: DeviceGraph, plan: ExecPlan, caps: tuple[int, ...],
+                   n_in: int, lanes: int, opts: ExecOpts,
+                   collect: str = "bindings"):
+    """The chunk program for ``lanes`` queries of one parameterized shape,
+    with the lane axis written out: the rows of every lane form one
+    binding table, lane-major, with a lane index per row, so each step is
+    one set of kernel launches for the whole batch.
+
+    Every lane starts from ``n_in`` start rows (``chunk`` int32
+    ``[lanes, n_in]``: its own start vertex, or the shared start set) and
+    reads its constants from its row of ``pmat`` (int32 ``[lanes,
+    n_params]``).  Each lane has its own capacity ``caps[si]`` per step and
+    freezes on its own: a lane whose expansion total passes its cap reports
+    the step in its ``ovf_step`` and drops its rows (the caller reruns it
+    alone), while the other lanes go on.  Compaction is stable over the
+    whole table, so each lane keeps stream order.  Every step runs
+    unfused (``ragged_expand`` and the filter kernels).
+
+    The program returns ``(b, p, org, scalars)``: the tables (lane ``l``'s
+    rows follow lanes ``< l``'s) and an int64 ``[lanes, 2 + 4 * steps]``
+    matrix of ``[count, ovf_step, totals..., kepts..., pins...,
+    pouts...]`` per lane, with the single-query program's ``-1``
+    sentinels — the only thing the host reads back."""
+    nq = plan.query.n_vertices
+    npv = max(1, plan.n_pvars)
+    steps = plan.steps
+    n_steps = len(steps)
+    _check_caps(caps, n_in, 0, n_steps)
+
+    def fn(chunk, pmat, sarrs):
+        dev = chunk.device
+        rows0 = lanes * n_in
+        # each row's lane
+        ln = torch.arange(lanes, dtype=I32, device=dev).repeat_interleave(n_in)
+        b = torch.full((rows0, nq), -1, dtype=I32, device=dev)
+        b[:, plan.start_vertex] = chunk.reshape(-1)
+        p = torch.full((rows0, npv), -1, dtype=I32, device=dev)
+        org = torch.arange(n_in, dtype=I32, device=dev).repeat(lanes)
+        cnt = torch.full((lanes,), n_in, dtype=I64, device=dev)
+        count = _scalar(rows0, dev, I64)
+
+        none = torch.full((lanes,), -1, dtype=I64, device=dev)
+        active = torch.ones(lanes, dtype=torch.bool, device=dev)
+        ovf_step = torch.full((lanes,), n_steps, dtype=I64, device=dev)
+        totals, kepts, pins, pouts = [], [], [], []
+        for si, step in enumerate(steps):
+            sarr = sarrs[si]
+            cap = caps[si]
+            out_rows = lanes * cap
+            alive = torch.arange(b.shape[0], device=dev) < count
+            src = _step_src(dg, step, sarr, b, alive)
+            # row runs of the lanes: the table is compacted lane-major
+            row_bounds = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])
+            total = _lane_sums(src.deg, row_bounds)
+            ovf_here = active & (total > cap)
+            keep = active & ~ovf_here
+            ovf_step = torch.where(ovf_here, si, ovf_step)
+            # a frozen or overflowing lane expands nothing from here on
+            deg = torch.where(keep[ln], src.deg, 0)
+            coffs = torch.cumsum(deg, 0, dtype=I64)
+            offs = (coffs - deg).to(I32)
+            slot_bounds = torch.cat([coffs.new_zeros(1), coffs])[row_bounds]
+            row, j, valid = kops.ragged_expand(offs, deg, out_rows)
+            ln_rows = ln[row]
+            bid = pmat[ln_rows, step.param_slot] if step.param_slot >= 0 \
+                else None
+            b_rows, p_rows, org_rows, ok, pre_sig, post_sig = _unfused_ok(
+                dg, plan, step, sarr, opts, src, row, j, valid, b, p, org,
+                bid)
+            kept = _lane_sums(ok.to(I32), slot_bounds)
+            cnt = torch.where(keep, kept, 0)
+            count = cnt.sum()
+            if not (collect == "count" and si == n_steps - 1):
+                pos = torch.where(ok, torch.cumsum(ok.to(I64), 0) - 1,
+                                  out_rows)
+                b = torch.full((out_rows + 1, nq), -1, dtype=I32, device=dev)
+                p = torch.full((out_rows + 1, npv), -1, dtype=I32,
+                               device=dev)
+                org = torch.full((out_rows + 1,), -1, dtype=I32, device=dev)
+                new_ln = torch.zeros(out_rows + 1, dtype=I32, device=dev)
+                b[pos] = b_rows
+                p[pos] = p_rows
+                org[pos] = org_rows
+                new_ln[pos] = ln_rows
+                b, p, org, ln = (b[:out_rows], p[:out_rows], org[:out_rows],
+                                 new_ln[:out_rows])
+            totals.append(torch.where(active, total, none))
+            kepts.append(torch.where(keep, cnt, none))
+            if pre_sig is None:
+                pins.append(none)
+                pouts.append(none)
+            else:
+                pins.append(torch.where(
+                    active, _lane_sums(pre_sig.to(I32), slot_bounds), none))
+                pouts.append(torch.where(
+                    keep, _lane_sums(post_sig.to(I32), slot_bounds), none))
+            active = keep
+
+        scalars = torch.stack([cnt, ovf_step, *totals, *kepts, *pins,
+                               *pouts], dim=1)
+        return b, p, org, scalars
 
     return fn
 
@@ -822,7 +994,9 @@ class Executor:
     the current snapshot, which also makes plans built against an older
     version execute correctly.
 
-    ``device`` defaults to ``"cuda"`` and raises without CUDA; pass
+    ``run`` executes one plan (with ``params`` for a parameterized one);
+    ``run_batch`` answers a batch of constant vectors of one parameterized
+    plan.  ``device`` defaults to ``"cuda"`` and raises without CUDA; pass
     ``"cpu"`` to run the kernels' plain versions.  ``policy`` / ``breaker``
     carry a previous executor's retry policy and learned degradations
     into a rebuilt one (the engine rebuilds after a compaction)."""
@@ -973,7 +1147,8 @@ class Executor:
 
         out: list[dict[str, torch.Tensor]] = []
         for s in plan.steps:
-            d: dict[str, torch.Tensor] = {}
+            d: dict[str, torch.Tensor] = {
+                "bound_id": _scalar(s.bound_id, dev)}
             if s.restart_candidates is not None:
                 cands = np.sort(cm.candidates(plan.query, s.u)) \
                     .astype(np.int32)
@@ -1066,6 +1241,26 @@ class Executor:
         plan._snap_start = (token, cands)  # type: ignore[attr-defined]
         return cands
 
+    def _param_start_candidates(self, plan: ExecPlan, params: np.ndarray,
+                                view=None) -> np.ndarray:
+        """Start candidates of a parameterized start vertex: exactly the
+        parameter's vertex id, subject to the label-containment check the
+        cost model applies to a baked bound vertex.  The signature prune is
+        skipped (a pure optimization on a one-element set).  Never cached on
+        the plan, since it varies with ``params``; valid on the base graph
+        and on snapshots (ids are stable across versions)."""
+        g = view if view is not None else self.graph
+        cid = int(params[plan.start_param_slot])
+        if cid < 0 or cid >= int(g.n_vertices):
+            return np.zeros(0, np.int32)
+        qv = plan.query.vertices[plan.start_vertex]
+        if qv.labels:
+            bm = np.asarray(g.label_bitmap[cid])
+            for lbl in qv.labels:
+                if not (int(bm[lbl >> 5]) >> (lbl & 31)) & 1:
+                    return np.zeros(0, np.int32)
+        return np.array([cid], np.int32)
+
     def _schedule(self, plan: ExecPlan, chunk_size: int,
                   opts: ExecOpts | None = None) -> tuple[tuple, list[int]]:
         """The (learned) per-step capacity schedule for this plan+chunk."""
@@ -1098,6 +1293,7 @@ class Executor:
         initial: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         profile: bool | None = None,
         state: tuple | None = None,
+        params: np.ndarray | None = None,
         cancel: CancelToken | None = None,
         _opts_override: ExecOpts | None = None,
     ) -> Result:
@@ -1107,8 +1303,11 @@ class Executor:
         with device syncs to fill per-step wall times in ``Result.stats``.
         ``state`` pins a ``pin()``-captured (view, device graph) pair so a
         multi-run query stays on one snapshot under concurrent updates.
-        ``cancel`` is polled between chunk dispatches and suffix-resume
-        re-entries.
+        ``params`` is a parameterized plan's constant vector (int32
+        ``[plan.n_params]``); a negative entry is a constant missing from
+        the dictionary and gives an empty result without touching the
+        device.  ``cancel`` is polled between chunk dispatches and
+        suffix-resume re-entries.
 
         Transient faults (out-of-memory shaped, CUDA's included) are
         absorbed by a retry/degradation ladder: bounded backoff retries at
@@ -1119,7 +1318,7 @@ class Executor:
         if _opts_override is not None:
             # explicit config (small-plan probes, degraded re-runs)
             return self._run_impl(plan, collect, initial, profile, state,
-                                  cancel, _opts_override)
+                                  params, cancel, _opts_override)
         sig = plan.signature()
         policy = self._policy
         level = self._breaker.level(sig)
@@ -1127,7 +1326,7 @@ class Executor:
         while True:
             try:
                 res = self._run_impl(
-                    plan, collect, initial, profile, state, cancel,
+                    plan, collect, initial, profile, state, params, cancel,
                     degrade_opts(self.opts, level) if level else None)
             except QueryCancelled:
                 raise
@@ -1179,6 +1378,7 @@ class Executor:
         initial: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         profile: bool | None = None,
         state: tuple | None = None,
+        params: np.ndarray | None = None,
         cancel: CancelToken | None = None,
         _opts_override: ExecOpts | None = None,
     ) -> Result:
@@ -1187,8 +1387,19 @@ class Executor:
         if plan.unsat:
             return Result(0, _empty(plan), _empty_p(plan), np.zeros(0, np.int32))
         if plan.n_params:
-            raise NotImplementedError(
-                "parameterized plans are not ported yet")
+            if params is None:
+                raise ValueError(
+                    f"plan expects {plan.n_params} parameters; none given")
+            params = np.asarray(params, np.int32).reshape(-1)
+            if params.shape[0] != plan.n_params:
+                raise ValueError(f"expected {plan.n_params} parameters, "
+                                 f"got {params.shape[0]}")
+            if (params < 0).any():
+                # a hoisted constant missing from the dictionary: provably
+                # zero solutions (the contract of an unsat baked plan)
+                return Result(0,
+                              _empty(plan) if collect == "bindings" else None,
+                              _empty_p(plan), np.zeros(0, np.int32))
         dev = self.device
         opts = self.opts if _opts_override is None else _opts_override
         small_legacy = False  # remembered small-probe verdict applied?
@@ -1203,7 +1414,8 @@ class Executor:
                 legacy = replace(opts, cap_schedule=False,
                                  suffix_resume=False, async_chunks=1,
                                  use_fused=False)
-                kw = dict(collect=collect, state=state, cancel=cancel)
+                kw = dict(collect=collect, state=state, params=params,
+                          cancel=cancel)
                 res = self.run(plan, _opts_override=opts, **kw)
                 t0 = time.perf_counter()
                 res = self.run(plan, _opts_override=opts, **kw)
@@ -1227,10 +1439,12 @@ class Executor:
                 small_legacy = True
         profile = opts.profile if profile is None else profile
         nq = plan.query.n_vertices
+        param_start = plan.start_param_slot >= 0 and params is not None
 
         if initial is None and not plan.steps:
             # point-shaped query (paper Algorithm 1 lines 2–4)
-            cands = self._start_candidates(plan, view)
+            cands = (self._param_start_candidates(plan, params, view)
+                     if param_start else self._start_candidates(plan, view))
             b = np.full((cands.shape[0], nq), -1, dtype=np.int32)
             b[:, plan.start_vertex] = cands
             return Result(
@@ -1246,7 +1460,9 @@ class Executor:
             b0, p0, org0 = initial
             n_src = b0.shape[0]
         else:
-            start_cands = self._start_candidates(plan, view)
+            start_cands = (self._param_start_candidates(plan, params, view)
+                           if param_start
+                           else self._start_candidates(plan, view))
             n_src = start_cands.shape[0]
         if n_src == 0 or (not extension and not plan.steps):
             return Result(0, _empty(plan) if collect == "bindings" else None,
@@ -1274,6 +1490,7 @@ class Executor:
         out_o: list[np.ndarray] = []
         chunk_size = min(opts.chunk, max(1, n_src))
         caps_key, caps = self._schedule(plan, chunk_size, opts)
+        params_dev = self._upload(params) if plan.n_params else None
 
         def host_args(offset: int, hi: int):
             n_real = hi - offset
@@ -1309,7 +1526,7 @@ class Executor:
             fn, fresh = self._get_fn(plan, used, chunk_size, extension,
                                      collect, 0, n_steps, dg, opts)
             stats["chunks"] += 1
-            return {"out": call_fn(fn, fresh, (*args, sarrs)),
+            return {"out": call_fn(fn, fresh, (*args, params_dev, sarrs)),
                     "args": args, "caps": used, "offset": offset}
 
         def accumulate(start: int, upto: int, acc_from: int,
@@ -1359,7 +1576,8 @@ class Executor:
                                              opts)
                     b, p, org, count, scalars = call_fn(
                         fn, fresh,
-                        (b[:n_in], count, p[:n_in], org[:n_in], sarrs))
+                        (b[:n_in], count, p[:n_in], org[:n_in], params_dev,
+                         sarrs))
                     start = ovf
                     acc_from = ovf
                     stats["resumes"] += 1
@@ -1374,7 +1592,7 @@ class Executor:
                                              chunk_size, extension, collect,
                                              0, n_steps, dg, opts)
                     b, p, org, count, scalars = call_fn(
-                        fn, fresh, (*rec["args"], sarrs))
+                        fn, fresh, (*rec["args"], params_dev, sarrs))
                     start = 0
                 used = new_caps
                 # persist the learned schedule for subsequent chunks
@@ -1400,8 +1618,8 @@ class Executor:
             if profile and n_steps:
                 self._run_profiled_chunk(plan, sarrs, offset, hi, chunk_size,
                                          extension, collect, caps_key, stats,
-                                         host_args, drain, dg, opts,
-                                         check_cancel)
+                                         host_args, drain, dg, params_dev,
+                                         opts, check_cancel)
             else:
                 pending.append(dispatch(offset, hi))
                 if len(pending) >= max_inflight:
@@ -1425,10 +1643,176 @@ class Executor:
         return Result(total, bindings, pb, origins,
                       chunks_retried=sum(stats["step_retries"]), stats=stats)
 
+    def run_batch(self, plan: ExecPlan, params_mat: np.ndarray,
+                  collect: str = "bindings",
+                  state: tuple | None = None,
+                  cancel: CancelToken | None = None) -> list[Result]:
+        """Answer ``B`` same-shape queries in one batch program.
+
+        ``params_mat`` (int32 ``[B, plan.n_params]``) stacks one constant
+        vector per query.  The lanes run as one row set (``build_batch_fn``),
+        so each step is one set of kernel launches for the whole batch.  The
+        lane count is padded to a power of two (pad lanes repeat the first
+        live lane and are discarded).  A parameterized start gives each lane
+        its own start row; otherwise the lanes share the plan's start set,
+        and a start set wider than one chunk runs the queries one by one.
+        Each lane has its own capacities and freezes on its own; a lane that
+        overflows is rerun alone through :meth:`run` (suffix-resume), so
+        every result equals the query's own run.
+
+        Lanes whose constants are missing from the dictionary (negative
+        ids) or whose parameterized start fails its label check return
+        empty results without touching the device.  A transient fault in
+        the batch program falls back to :meth:`run` per query.  Every step
+        runs unfused, as in the reference's vmapped program."""
+        state = self.pin() if state is None else state
+        view, dg = state
+        params_mat = np.asarray(params_mat, np.int32)
+        if params_mat.ndim != 2 or params_mat.shape[1] != plan.n_params:
+            raise ValueError(
+                f"expected params [B, {plan.n_params}], got "
+                f"{params_mat.shape}")
+        n_q = params_mat.shape[0]
+        n_steps = len(plan.steps)
+
+        def empty() -> Result:
+            return Result(0,
+                          _empty(plan) if collect == "bindings" else None,
+                          _empty_p(plan), np.zeros(0, np.int32))
+
+        def solo(i: int) -> Result:
+            return self.run(plan, collect=collect, state=state,
+                            params=params_mat[i], cancel=cancel)
+
+        results: list[Result | None] = [None] * n_q
+        if plan.unsat:
+            return [empty() for _ in range(n_q)]
+        if not plan.steps or plan.n_params == 0 or n_q == 1:
+            # degenerate shapes: nothing to amortize
+            return [solo(i) for i in range(n_q)]
+
+        opts = replace(self.opts, use_fused=False, async_chunks=1)
+        per_lane_start = plan.start_param_slot >= 0
+        if per_lane_start:
+            chunk_size = 1
+            lane_start = np.full(n_q, -1, np.int32)
+            for i in range(n_q):
+                if (params_mat[i] < 0).any():
+                    results[i] = empty()
+                    continue
+                cands = self._param_start_candidates(plan, params_mat[i],
+                                                     view)
+                if cands.size == 0:
+                    results[i] = empty()
+                else:
+                    lane_start[i] = cands[0]
+        else:
+            start_cands = self._start_candidates(plan, view)
+            n_src = start_cands.shape[0]
+            if n_src == 0:
+                return [empty() for _ in range(n_q)]
+            if n_src > opts.chunk:
+                # per-lane accumulation across chunks would lose the
+                # one-program win anyway
+                return [solo(i) for i in range(n_q)]
+            chunk_size = n_src
+            for i in range(n_q):
+                if (params_mat[i] < 0).any():
+                    results[i] = empty()
+
+        live = [i for i in range(n_q) if results[i] is None]
+        if not live:
+            return results  # type: ignore[return-value]
+        n_live = len(live)
+        lanes = 1 << max(0, (n_live - 1).bit_length())
+        rows = live + [live[0]] * (lanes - n_live)
+        sarrs = self._arrays(plan, state)
+        if per_lane_start:
+            # one start row per lane: the single-query floor (init_cap)
+            # would size every lane for a whole chunk, so caps follow the
+            # estimate with a small floor; an undersized lane freezes and
+            # reruns alone, which keeps every result exact
+            caps = list(plan.capacity_schedule(
+                chunk_size, min(opts.init_cap, 64), opts.max_cap,
+                opts.cap_slack))
+            chunk = lane_start[rows][:, None]
+        else:
+            _, caps = self._schedule(plan, chunk_size, opts)
+            chunk = np.broadcast_to(start_cands, (lanes, n_src))
+        used = tuple(caps)
+        key = ProgramKey(plan.signature(), used, chunk_size, False, collect,
+                         0, n_steps, opts.key(), dg.key(), lanes=lanes,
+                         per_lane_start=per_lane_start)
+        fn = self._compiled.get(key)
+        if fn is None:
+            fn = build_batch_fn(dg, plan, used, chunk_size, lanes, opts,
+                                collect)
+            self._compiled[key] = fn
+        if cancel is not None and cancel.expired:
+            raise QueryCancelled(
+                f"query cancelled: {cancel.reason or 'cancelled'}")
+        try:
+            poison = _faults.fire("dispatch")
+            b, p, org, scalars = fn(
+                self._upload(np.ascontiguousarray(chunk, np.int32)),
+                self._upload(np.ascontiguousarray(params_mat[rows])), sarrs)
+        except Exception as e:  # noqa: BLE001 - filtered just below
+            if not is_transient_fault(e):
+                raise
+            # the batch program hit memory pressure: run the queries one by
+            # one, whose per-run ladder absorbs the fault
+            return [results[i] if results[i] is not None else solo(i)
+                    for i in range(n_q)]
+        sc = scalars.cpu().numpy()  # the one readback of the batch
+        count_h = sc[:, 0]
+        offs_h = np.concatenate([[0], np.cumsum(count_h)])
+        if poison:
+            count_h = np.zeros_like(count_h)
+        k = n_steps
+        tot_h, kep_h = sc[:, 2:2 + k], sc[:, 2 + k:2 + 2 * k]
+        pin_h, pout_h = sc[:, 2 + 2 * k:2 + 3 * k], sc[:, 2 + 3 * k:]
+        if collect == "bindings":
+            n_rows = int(offs_h[-1])
+            b_h = b[:n_rows].cpu().numpy()
+            p_h = p[:n_rows].cpu().numpy()
+            org_h = org[:n_rows].cpu().numpy()
+        kernels = [_step_kernel_name(dg, st, sarrs[si], opts,
+                                     collect == "count" and si == n_steps - 1)
+                   for si, st in enumerate(plan.steps)]
+        for li, qi in enumerate(live):
+            if int(sc[li, 1]) < n_steps:
+                # an overflowing lane: rerun alone (suffix-resume doubling
+                # is deterministic, so its answer equals a lane that fit)
+                results[qi] = solo(qi)
+                continue
+            c = int(count_h[li])
+            stats = _empty_stats(n_steps)
+            stats["chunks"] = 1
+            stats["batched"] = True
+            stats["batch_lanes"] = lanes
+            stats["batch_fill"] = n_live / lanes
+            stats["step_kernels"] = kernels
+            for si in range(n_steps):
+                for key_, vals in (("step_rows", tot_h),
+                                   ("step_kept", kep_h),
+                                   ("step_prune_in", pin_h),
+                                   ("step_prune_out", pout_h)):
+                    if vals[li, si] >= 0:
+                        stats[key_][si] = int(vals[li, si])
+            if collect == "bindings":
+                lo = int(offs_h[li])
+                results[qi] = Result(c, b_h[lo:lo + c].copy(),
+                                     p_h[lo:lo + c].copy(),
+                                     org_h[lo:lo + c].copy(), stats=stats)
+            else:
+                results[qi] = Result(c, None, _empty_p(plan),
+                                     np.zeros(0, np.int32), stats=stats)
+        return results  # type: ignore[return-value]
+
     def _run_profiled_chunk(self, plan, sarrs, offset, hi, chunk_size,
                             extension, collect, caps_key, stats, host_args,
-                            drain, dg: DeviceGraph, opts: ExecOpts,
-                            check_cancel) -> None:
+                            drain, dg: DeviceGraph, params_dev,
+                            opts: ExecOpts, check_cancel) -> None:
         """Step-at-a-time execution of one chunk with device syncs, filling
         per-step wall times; overflow handling is inherently suffix-resume
         (each window re-runs alone with a doubled capacity)."""
@@ -1453,10 +1837,11 @@ class Executor:
                 sync()
                 t0 = time.perf_counter()
                 if si == 0:
-                    out = fn(*args, sarrs)
+                    out = fn(*args, params_dev, sarrs)
                 else:
                     b, p, org, count = state
-                    out = fn(b[:n_in], count, p[:n_in], org[:n_in], sarrs)
+                    out = fn(b[:n_in], count, p[:n_in], org[:n_in],
+                             params_dev, sarrs)
                 if poison:
                     stats["poisoned"] = stats.get("poisoned", 0) + 1
                     out = _poisoned(out)

@@ -24,6 +24,10 @@ fingerprint, and returns a ``CompiledQuery`` of branch plans + projections;
 ``execute_compiled()`` runs one.  Alpha-equivalent queries — same shape,
 different variable names / triple order — therefore compile exactly once
 per engine, and results are renamed back to the caller's variables.
+One level further, ``compile_param`` hoists a query's non-structural
+constants into parameters, so every query of a *shape* shares one plan
+(a :class:`ParamFamily`), and ``execute_param_batch`` answers many of them
+in one batch program (``Executor.run_batch``).
 
 The engine runs on one torch ``device`` (default ``"cuda"``, which raises
 without CUDA; ``"cpu"`` runs the kernels' plain versions): the executor's
@@ -141,6 +145,42 @@ class CompiledQuery:
         return total
 
 
+@dataclass
+class ParamFamily:
+    """One parameterized plan shared by every query of a *shape*.
+
+    Built by :meth:`SparqlEngine.compile_param` from a
+    :class:`~repro_torch.serve.fingerprint.ParamQuery`: non-structural
+    constants are hoisted into ``plan`` parameter slots (inputs of the
+    chunk program on the device), so one plan answers any member of the
+    family, and :meth:`SparqlEngine.execute_param_batch` answers many
+    members in one batch program.  ``variables`` / ``kinds`` use
+    shape-canonical names; callers rename per query."""
+
+    shape: str
+    query: SelectQuery      # the blinded-canonical shape AST
+    q: QueryGraph
+    plan: ExecPlan
+    expensive: list         # post-hoc filters (shared by all members)
+    variables: list[str]
+    kinds: list[str]
+    n_params: int
+    # solution modifiers are part of the shape (serialized un-blinded)
+    distinct: bool = False
+    limit: int | None = None
+    offset: int = 0
+    plan_ms: float = 0.0
+
+    @property
+    def has_modifiers(self) -> bool:
+        return self.distinct or self.limit is not None or self.offset > 0
+
+
+# cached plan-cache verdict: this shape cannot be parameterized (structural
+# reasons only — data-dependent misses are never cached)
+_PARAM_INELIGIBLE = object()
+
+
 class SparqlEngine:
     """End-to-end SPARQL evaluation against one transformed graph.
 
@@ -153,7 +193,7 @@ class SparqlEngine:
 
     def __init__(self, graph, maps: TransformMaps, opts: ExecOpts | None = None,
                  estimate: str = "sampled", plan_cache=None, device="cuda"):
-        from repro_torch.serve.cache import PlanCache
+        from repro_torch.serve.cache import CacheStats, PlanCache
 
         self.graph = graph
         self.maps = maps
@@ -164,6 +204,9 @@ class SparqlEngine:
         if plan_cache is None:
             plan_cache = PlanCache(capacity=256)
         self._plan_cache = plan_cache
+        # parameterized-family compilation accounting (a hit = a query
+        # answered by an already-compiled shape plan)
+        self.param_stats = CacheStats()
 
     # ------------------------------------------------------------------ API
     @property
@@ -226,6 +269,170 @@ class SparqlEngine:
                     and compiled.any_unsat):
                 self._plan_cache.put(canon.fingerprint, compiled)
         return (compiled, fresh) if with_fresh else compiled
+
+    def compile_param(self, pq) -> ParamFamily | None:
+        """Compile (through the plan cache) the parameterized plan for a
+        :class:`~repro_torch.serve.fingerprint.ParamQuery`'s shape.
+
+        Returns a :class:`ParamFamily`, or ``None`` when the shape cannot
+        be parameterized: OPTIONAL/UNION shapes, shapes with no hoistable
+        constants, plans whose cross-component restart step would need a
+        re-baked candidate set per constant vector — all structural, so the
+        verdict is cached — or (data-dependent, never cached) a family
+        representative whose constant is missing from the dictionary.
+        Callers fall back to :meth:`compile` / :meth:`execute_compiled`.
+        Families are cached under the tuple key ``("shape", hash)``, which
+        cannot collide with plain fingerprint-string keys."""
+        key = ("shape", pq.shape)
+        cached = self._plan_cache.get(key)
+        if cached is not None:
+            self.param_stats.hits += 1
+            return None if cached is _PARAM_INELIGIBLE else cached
+        self.param_stats.misses += 1
+        ast = pq.shape_query
+        g = ast.where
+        if not pq.consts or g.optionals or g.unions:
+            self._plan_cache.put(key, _PARAM_INELIGIBLE)
+            return None
+        from repro_torch.serve.fingerprint import iter_param_occurrences
+
+        param_ids = {id(t): k
+                     for k, t in enumerate(iter_param_occurrences(g))}
+        q = build_query_graph(g.triples, self.maps, param_ids=param_ids)
+        if q.param_missing:
+            # the representative's constant is missing; other members may
+            # resolve, so no verdict is cached
+            return None
+        cheap, expensive = _split_filters(g.filters, q)
+        if q.unsat:
+            # unsat whatever the hoisted constants (a missing predicate or
+            # class): final only on an immutable graph
+            if not getattr(self.graph, "is_snapshot", False):
+                self._plan_cache.put(key, _PARAM_INELIGIBLE)
+            return None
+        plan = build_plan(self.graph, q, estimate=self.estimate,
+                          num_filters=cheap, use_nlf=self.opts.use_nlf,
+                          use_deg=self.opts.use_deg,
+                          use_sig=self.opts.use_prune, device=self.device)
+        if (plan.n_params != len(pq.consts)
+                or any(s.restart_candidates is not None and s.param_slot >= 0
+                       for s in plan.steps)):
+            # a parameterized constant anchors its own component: its baked
+            # restart-candidate set would vary per constant vector
+            self._plan_cache.put(key, _PARAM_INELIGIBLE)
+            return None
+        variables: list[str] = []
+        kinds: list[str] = []
+        want = ast.select or [v for v in q.var_to_vertex] + q.pvars
+        for var in want:
+            variables.append(var)
+            kinds.append("vertex" if var in q.var_to_vertex
+                         else "predicate" if var in q.pvars else "vertex")
+        family = ParamFamily(shape=pq.shape, query=ast, q=q, plan=plan,
+                             expensive=expensive, variables=variables,
+                             kinds=kinds, n_params=len(pq.consts),
+                             distinct=ast.distinct, limit=ast.limit,
+                             offset=ast.offset, plan_ms=plan.build_ms)
+        self._plan_cache.put(key, family)
+        return family
+
+    def resolve_params(self, consts) -> np.ndarray:
+        """Constant keys (dictionary text form, as
+        ``fingerprint.const_key`` makes them) → vertex-id vector; a term
+        missing from the dictionary maps to ``-1``, the executor's
+        provably-empty sentinel."""
+        out = np.empty(len(consts), np.int32)
+        for i, c in enumerate(consts):
+            vid = self.maps.vertex_of(c)
+            out[i] = -1 if vid is None else vid
+        return out
+
+    def _param_count_result(self, family: ParamFamily,
+                            res: Result) -> QueryResult:
+        return QueryResult(
+            list(family.variables),
+            np.zeros((0, len(family.variables)), np.int32),
+            list(family.kinds), count=res.count,
+            stats={"plan_ms": family.plan_ms,
+                   "exec": {"branches": [{"base": res.stats}]}})
+
+    def execute_param(self, family: ParamFamily, consts,
+                      collect: str = "bindings",
+                      cancel: CancelToken | None = None) -> QueryResult:
+        """Run one family member: resolve its constant vector and execute
+        the shared parameterized plan.  Result columns carry the shape's
+        canonical variable names (callers rename back)."""
+        params = self.resolve_params(consts)
+        executor = self.executor
+        state = executor.pin()
+        count_only = (collect == "count" and not family.expensive
+                      and not family.has_modifiers)
+        res = executor.run(family.plan,
+                           collect="count" if count_only else "bindings",
+                           state=state, params=params, cancel=cancel)
+        if count_only:
+            return self._param_count_result(family, res)
+        return self._finish_param(family, res)
+
+    def execute_param_batch(self, family: ParamFamily, const_rows,
+                            collect: str = "bindings",
+                            cancel: CancelToken | None = None,
+                            ) -> list[QueryResult]:
+        """Answer ``B`` members of one family in one batch program
+        (:meth:`Executor.run_batch`); each result equals what per-member
+        :meth:`execute_param` returns."""
+        if not const_rows:
+            return []
+        if len(const_rows) == 1:
+            return [self.execute_param(family, const_rows[0], collect,
+                                       cancel=cancel)]
+        executor = self.executor
+        state = executor.pin()
+        mat = np.stack([self.resolve_params(c) for c in const_rows])
+        count_only = (collect == "count" and not family.expensive
+                      and not family.has_modifiers)
+        results = executor.run_batch(
+            family.plan, mat, collect="count" if count_only else "bindings",
+            state=state, cancel=cancel)
+        return [self._param_count_result(family, res) if count_only
+                else self._finish_param(family, res) for res in results]
+
+    def _finish_param(self, family: ParamFamily, res: Result) -> QueryResult:
+        """Post-executor finish for one family member: post-hoc filters,
+        projection, and DISTINCT/OFFSET/LIMIT — the single-branch subset of
+        :meth:`execute_compiled`, applied in the same order so results are
+        identical to the unparameterized path."""
+        table, ptable, _ = self._apply_expensive(res.bindings,
+                                                 res.pvar_bindings,
+                                                 family.q, family.expensive)
+        q = family.q
+        cols: list[np.ndarray] = []
+        for var in family.variables:
+            if var in q.var_to_vertex:
+                cols.append(table[:, q.var_to_vertex[var]])
+            elif var in q.pvars:
+                cols.append(ptable[:, q.pvars.index(var)])
+            else:
+                cols.append(np.full(table.shape[0], -1, np.int32))
+        rows = np.stack(cols, axis=1) if cols else np.zeros(
+            (table.shape[0], 0), np.int32)
+        if family.distinct:
+            rows = np.unique(rows, axis=0)
+        if family.offset:
+            rows = rows[family.offset:]
+        if family.limit is not None:
+            rows = rows[: family.limit]
+        # est_rows / step_card as execute_compiled reports them (estimates
+        # are per shape, shared by every member of the family)
+        step_card = [(float(est), int(actual))
+                     for est, actual in zip(family.plan.est_rows,
+                                            res.stats.get("step_kept") or [])]
+        return QueryResult(list(family.variables), rows, list(family.kinds),
+                           count=int(rows.shape[0]),
+                           stats={"plan_ms": family.plan_ms,
+                                  "est_rows": family.plan.estimated_rows(),
+                                  "exec": {"branches": [{"base": res.stats}]},
+                                  "step_card": step_card})
 
     def execute_compiled(self, compiled: CompiledQuery,
                          collect: str = "bindings",
@@ -344,6 +551,31 @@ class SparqlEngine:
             out["actual_rows"] = res.count
             out["q_error"] = round(qerror(out["est_total_rows"], res.count), 3)
         return out
+
+    def explain_param(self, source: str | SelectQuery) -> dict:
+        """Describe a query's *parameterized family* plan: the shape hash,
+        the hoisted constants with their parameter slots, and the plan with
+        ``param[k]`` markers where the executor reads its device inputs
+        instead of baked ids.  Returns ``{"parameterized": False, ...}``
+        with the plain explain when the shape cannot be parameterized."""
+        from repro_torch.serve.fingerprint import parameterize_query
+
+        pq = parameterize_query(source)
+        family = self.compile_param(pq)
+        if family is None:
+            return {"parameterized": False, "shape": pq.shape,
+                    "constants": list(pq.consts),
+                    "explain": self.explain(source)}
+        desc = explain_plan(family.plan, self.maps)
+        inv = pq.inverse
+        return {
+            "parameterized": True,
+            "shape": family.shape,
+            "params": [{"slot": k, "constant": c}
+                       for k, c in enumerate(pq.consts)],
+            "variables": [inv.get(v, v) for v in family.variables],
+            "plan": desc,
+        }
 
     def describe_compiled(self, compiled: CompiledQuery,
                           run_stats: dict | None = None,

@@ -12,6 +12,10 @@
 //      an upper-bound search on the exclusive cumsum `offs`, gathers
 //      v = nbr[start[row] + j], tests (bitmap[v] & mask) == mask and the
 //      bound id, and each block counts its survivors (warp ballot + popc);
+//      the bound id is read on the device, from a step's baked scalar or a
+//      parameterized plan's `params` at the step's slot, once per block
+//      into shared memory (so a parameterized plan's constants never come
+//      back to the host);
 //   2. scan: one block turns the per-block counts (at most 2^22 / 1024 of
 //      them) into exclusive block bases in place and writes the total count;
 //   3. scatter: the slots are evaluated again and each survivor is written
@@ -47,7 +51,7 @@ struct Args {
   int n_vertices;  // bitmap rows
   int w;           // bitmap words per row
   int r_rows;      // input rows
-  int bound_id;    // < 0: no check
+  const int32_t* bound;  // *bound < 0: no check
   int capacity;
 };
 
@@ -57,7 +61,16 @@ struct Slot {
   int row;
 };
 
-__device__ __forceinline__ Slot eval_slot(const Args& a, int k) {
+// The block's bound id, read once by thread 0 into shared memory.  Every
+// thread of the block must call it.
+__device__ __forceinline__ int block_bound_id(const Args& a) {
+  __shared__ int bid;
+  if (threadIdx.x == 0) bid = __ldg(a.bound);
+  __syncthreads();
+  return bid;
+}
+
+__device__ __forceinline__ Slot eval_slot(const Args& a, int k, int bound_id) {
   Slot s{false, -1, -1};
   if (k >= a.capacity) return s;
   // row = rightmost i with offs[i] <= k
@@ -83,7 +96,7 @@ __device__ __forceinline__ Slot eval_slot(const Args& a, int k) {
   const int vs = repro::clampi(v, 0, a.n_vertices - 1);
   s.ok = repro::superset(a.bitmap + static_cast<long long>(vs) * a.w, a.mask,
                          a.w) &&
-         (a.bound_id < 0 || v == a.bound_id);
+         (bound_id < 0 || v == bound_id);
   return s;
 }
 
@@ -116,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
 count_kernel(Args a, int* __restrict__ block_counts) {
   __shared__ int warp_sums[kWarps + 1];
   const int k = blockIdx.x * kThreads + threadIdx.x;
-  const Slot s = eval_slot(a, k);
+  const Slot s = eval_slot(a, k, block_bound_id(a));
   int total;
   block_rank(s.ok, warp_sums, &total);
   if (threadIdx.x == 0) block_counts[blockIdx.x] = total;
@@ -169,7 +182,7 @@ scatter_kernel(Args a, const int* __restrict__ block_base,
                int* __restrict__ row_out) {
   __shared__ int warp_sums[kWarps + 1];
   const int k = blockIdx.x * kThreads + threadIdx.x;
-  const Slot s = eval_slot(a, k);
+  const Slot s = eval_slot(a, k, block_bound_id(a));
   int total;
   const int rank = block_rank(s.ok, warp_sums, &total);
   if (s.ok) {
@@ -189,7 +202,8 @@ scatter_kernel(Args a, const int* __restrict__ block_base,
 REPRO_EXPORT int repro_expand_filter_compact(
     const void* nbr, int m, const void* bitmap, int n_vertices, int w,
     const void* start, const void* deg, const void* offs, int r_rows,
-    const void* mask, int bound_id, int capacity, void* v_out, void* row_out,
+    const void* mask, const void* bound, int capacity,
+    void* v_out, void* row_out,
     void* count_out, void* scratch, void* stream) {
   if (capacity <= 0 || capacity > kMaxCapacity || r_rows <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -198,7 +212,8 @@ REPRO_EXPORT int repro_expand_filter_compact(
   Args a{static_cast<const int32_t*>(nbr), static_cast<const int32_t*>(bitmap),
          static_cast<const int32_t*>(start), static_cast<const int32_t*>(deg),
          static_cast<const int32_t*>(offs), static_cast<const int32_t*>(mask),
-         m, n_vertices, w, r_rows, bound_id, capacity};
+         m, n_vertices, w, r_rows, static_cast<const int32_t*>(bound),
+         capacity};
   const unsigned n_blocks = repro::blocks_for(capacity, kThreads);
   int* counts = static_cast<int*>(scratch);
   int* cnt = static_cast<int*>(count_out);

@@ -6,13 +6,14 @@ else picks the path: no environment switch, no fallback.  Each kernel
 wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show which kernels it went through.
 
-The six kernels replace the reference's Pallas TPU kernels on the engine's
-paths: ``expand_filter_compact``, ``edge_exists``, ``tile_membership``,
-``bitmap_superset`` and ``signature_filter`` on every query, and
-``delta_merge`` on live-store snapshots.  ``ragged_expand`` and
-``delta_merge_labeled`` are plain tensor code in the reference too and run
-as such on every device.  ``segment_gather_sum`` has no Hopper kernel yet
-and raises on a CUDA tensor.
+The seven kernels replace the reference's Pallas TPU kernels:
+``expand_filter_compact``, ``edge_exists``, ``tile_membership``,
+``bitmap_superset`` and ``signature_filter`` on every query,
+``delta_merge`` on live-store snapshots, and ``segment_gather`` behind
+``segment_gather_fixed`` / ``segment_gather_sum`` (the embedding-bag / GNN
+aggregation entry points).  ``ragged_expand`` and ``delta_merge_labeled``
+are plain tensor code in the reference too and run as such on every
+device.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 from repro_torch.kernels import ref as _ref
 
 KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
-           "bitmap_superset", "signature_filter", "delta_merge")
+           "bitmap_superset", "signature_filter", "delta_merge",
+           "segment_gather")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # capacity bound of the compaction kernel's one-block scan of block counts
@@ -134,16 +136,23 @@ def signature_filter(sig, v, required):
 
 
 def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
-                          bound_id: int, capacity: int):
+                          bound_id, capacity: int):
     """Fused ragged expansion + bitmap filter + order-preserving compaction.
-    Returns ``(v_out, row_out, count)`` with ``count`` an int32 scalar
-    tensor that stays on the device; see
+    ``bound_id`` is a one-element int32 tensor on the inputs' device
+    (``< 0``: no check): a step's baked scalar, or ``params[slot]`` of a
+    parameterized plan (a view, so no copy), and the kernel reads it on the
+    device, so nothing is read back.  Returns
+    ``(v_out, row_out, count)`` with ``count`` an int32 scalar tensor that
+    stays on the device; see
     :func:`repro_torch.kernels.ref.expand_filter_compact_ref`."""
-    if not _on_cuda(nbr, bitmap, start, deg, offs, label_mask):
+    if bound_id.numel() != 1:
+        raise ValueError(f"expand_filter_compact: a bound id of "
+                         f"{bound_id.numel()} elements, expected 1")
+    if not _on_cuda(nbr, bitmap, start, deg, offs, label_mask, bound_id):
         return _ref.expand_filter_compact_ref(nbr, bitmap, start, deg, offs,
                                               label_mask, bound_id, capacity)
     _check("expand_filter_compact", nbr, bitmap, start, deg, offs,
-           label_mask, same_len=(start, deg, offs),
+           label_mask, bound_id, same_len=(start, deg, offs),
            words=(label_mask, bitmap.shape[1]))
     if not 0 < capacity <= MAX_CAPACITY:
         raise ValueError(f"expand_filter_compact: capacity {capacity} "
@@ -159,7 +168,7 @@ def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
     _launch("expand_filter_compact", "expand_filter", nbr,
             max(1, nbr.shape[0]), bitmap, bitmap.shape[0],
             bitmap.shape[1], start, deg, offs,
-            offs.shape[0], label_mask, int(bound_id), capacity,
+            offs.shape[0], label_mask, bound_id, capacity,
             v_out, row_out, count, scratch)
     return v_out, row_out, count
 
@@ -231,10 +240,78 @@ def delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
     return v, ok
 
 
+_GATHER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _gather_launch(table, idx, weights, offsets, k: int, s: int):
+    """One ``segment_gather`` launch over ``s`` segments: segment ``i``'s
+    entries are ``idx[offsets[i]:offsets[i+1]]`` (ragged) or
+    ``idx[i*k:(i+1)*k]`` (``offsets`` None, the fixed layout)."""
+    if table.ndim != 2 or table.dtype not in _GATHER_DTYPES \
+            or not table.is_contiguous():
+        raise ValueError(f"segment_gather: expected a contiguous [V, D] "
+                         f"float32 or bfloat16 table, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if table.shape[0] == 0:
+        raise ValueError("segment_gather: empty table")
+    if weights is not None:
+        weights = weights.to(table.dtype).contiguous()
+    out = torch.empty((s, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    if s and table.shape[1]:
+        _launch("segment_gather", "segment_gather", table, table.shape[0],
+                table.shape[1], _GATHER_DTYPES[table.dtype], idx, weights,
+                offsets, k, s, out)
+    return out
+
+
+def segment_gather_fixed(table, idx, weights=None):
+    """Fused gather + weighted sum over the fixed-hotness layout:
+    ``out[s] = Σ_k w[s, k] · table[idx[s, k]]`` for ``idx int32 [S, K]``
+    (``< 0``: padding; ``≥ V``: row ``V-1``), float32 accumulation, the
+    table's dtype out.  See
+    :func:`repro_torch.kernels.ref.segment_gather_fixed_ref`."""
+    ts = (table, idx) if weights is None else (table, idx, weights)
+    if not _on_cuda(*ts):
+        return _ref.segment_gather_fixed_ref(table, idx, weights=weights)
+    _check("segment_gather", idx)
+    if idx.ndim != 2 or (weights is not None
+                         and weights.shape != idx.shape):
+        raise ValueError(f"segment_gather_fixed: idx {tuple(idx.shape)} "
+                         f"must be [S, K] and weights of the same shape")
+    s, k = idx.shape
+    return _gather_launch(table, idx, weights, None, k, s)
+
+
 def segment_gather_sum(table, indices, segments, num_segments, weights=None):
-    """Fused gather + weighted segment-sum."""
-    if _on_cuda(table, indices, segments):
-        raise NotImplementedError(
-            "segment_gather_sum has no Hopper kernel yet")
-    return _ref.segment_gather_sum_ref(table, indices, segments,
-                                       num_segments, weights=weights)
+    """Fused gather + weighted segment-sum over ragged ``(indices,
+    segments)`` entries (the reference's semantics: a negative index counts
+    from the end and then clamps into ``[0, V-1]``; an entry whose segment
+    lies outside ``[0, num_segments)`` is dropped; see
+    :func:`repro_torch.kernels.ref.segment_gather_sum_ref`).
+
+    On CUDA the entries are put in segment order on the device first (a
+    stable sort by segment, dropped entries last, and ``searchsorted``
+    segment offsets), so each segment's run keeps its entries' order; the
+    gather-sum is then one ``segment_gather`` launch.  There is no hotness
+    or table-size bound."""
+    ts = (table, indices, segments) + (() if weights is None else (weights,))
+    if not _on_cuda(*ts):
+        return _ref.segment_gather_sum_ref(table, indices, segments,
+                                           num_segments, weights=weights)
+    _check("segment_gather", indices, segments,
+           same_len=(indices, segments))
+    if weights is not None and weights.shape != indices.shape:
+        raise ValueError(f"segment_gather_sum: weights {tuple(weights.shape)}"
+                         f" do not match {tuple(indices.shape)} entries")
+    v = table.shape[0]
+    idx = torch.where(indices < 0, indices + v, indices).clamp_(
+        0, max(v, 1) - 1)
+    inside = (segments >= 0) & (segments < num_segments)
+    seg, order = torch.sort(torch.where(inside, segments, num_segments),
+                            stable=True)
+    offsets = torch.searchsorted(
+        seg, torch.arange(num_segments + 1, dtype=torch.int32,
+                          device=seg.device), out_int32=True)
+    w = None if weights is None else weights[order]
+    return _gather_launch(table, idx[order], w, offsets, 0, num_segments)

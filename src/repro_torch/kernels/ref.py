@@ -54,31 +54,68 @@ def signature_filter_ref(sig: torch.Tensor, v: torch.Tensor,
     return torch.all((rows & req) == req, dim=-1)
 
 
+def _clamp_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``idx`` clamped into ``[0, V-1]`` as int64 (a gather clamps where JAX
+    does)."""
+    return idx.long().clamp(0, max(1, table.shape[0]) - 1)
+
+
+def segment_gather_fixed_ref(table: torch.Tensor, idx: torch.Tensor,
+                             weights: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Fused gather + weighted sum over the fixed-hotness layout:
+    ``out[s] = Σ_k w[s, k] · table[idx[s, k]]`` for ``idx int32 [S, K]``.
+    An index ``< 0`` is padding and adds nothing; an index ``≥ V`` reads
+    row ``V-1``.  Weights (default 1) are cast to the table's dtype and each
+    product is taken in that dtype, as the TPU kernel takes them; the sum
+    runs in float32 and is written in the table's dtype."""
+    rows = table[_clamp_rows(table, idx)]  # [S, K, D]
+    if weights is not None:
+        rows = rows * weights.to(table.dtype)[:, :, None]
+    rows = torch.where((idx >= 0)[:, :, None], rows, 0)
+    return rows.float().sum(1).to(table.dtype)
+
+
 def segment_gather_sum_ref(table: torch.Tensor, indices: torch.Tensor,
                            segments: torch.Tensor, num_segments: int,
                            weights: torch.Tensor | None = None
                            ) -> torch.Tensor:
-    """Fused gather + segment-sum (EmbeddingBag-sum / GNN aggregate)."""
-    rows = table[indices]
+    """Fused gather + segment-sum (EmbeddingBag-sum / GNN aggregate):
+    ``out[s] = Σ_{e: segments[e] = s} w[e] · table[indices[e]]``.
+
+    The reference's semantics (``table[indices]`` then
+    ``jax.ops.segment_sum``): a negative index counts from the end, as in
+    numpy, and the result is then clamped into ``[0, V-1]`` (``-1`` reads
+    row ``V-1``, ``-6`` on a 4-row table row 0, ``V`` row ``V-1``); an
+    entry whose segment lies outside ``[0, num_segments)`` is dropped.
+    Weights are cast to the table's dtype and products taken in it; the
+    sum runs in float32 and is written in the table's dtype."""
+    v = table.shape[0]
+    idx = indices.long()
+    rows = table[_clamp_rows(table, torch.where(idx < 0, idx + v, idx))]
     if weights is not None:
-        rows = rows * weights[:, None]
+        rows = rows * weights.to(table.dtype)[:, None]
+    seg = segments.long()
+    keep = (seg >= 0) & (seg < num_segments)
     out = torch.zeros((num_segments,) + tuple(table.shape[1:]),
-                      dtype=rows.dtype, device=table.device)
-    return out.index_add_(0, segments.long(), rows)
+                      dtype=torch.float32, device=table.device)
+    out.index_add_(0, seg[keep], rows[keep].float())
+    return out.to(table.dtype)
 
 
 def expand_filter_compact_ref(nbr: torch.Tensor, bitmap: torch.Tensor,
                               start: torch.Tensor, deg: torch.Tensor,
                               offs: torch.Tensor, label_mask: torch.Tensor,
-                              bound_id: int, capacity: int
+                              bound_id: torch.Tensor, capacity: int
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Fused ragged CSR expansion + bitmap superset filter + compaction.
 
     The candidate stream is the concatenation over rows i of
     ``nbr[start[i] : start[i] + deg[i]]``; a candidate v survives iff
-    ``(bitmap[v] & label_mask) == label_mask`` and, when ``bound_id >= 0``,
-    ``v == bound_id``.  Only the first ``capacity`` slots take part.
+    ``(bitmap[v] & label_mask) == label_mask`` and, when the bound id
+    ``bid`` (a one-element int32 tensor: a step's baked scalar or
+    ``params[slot]`` of a parameterized plan) is ``>= 0``, ``v == bid``.  Only the first ``capacity`` slots take part.
     Survivors are compacted to a prefix in stream order.  Returns
     ``(v_out, row_out, count)``: int32 [capacity] each, -1 past ``count``,
     and ``count`` an int32 scalar tensor.
@@ -87,9 +124,9 @@ def expand_filter_compact_ref(nbr: torch.Tensor, bitmap: torch.Tensor,
     idx = (start[row] + j).clamp(0, max(1, nbr.shape[0]) - 1)
     v = torch.where(valid, nbr[idx], -1)
     vsafe = v.clamp(0, bitmap.shape[0] - 1)
-    ok = valid & bitmap_superset_ref(bitmap[vsafe], label_mask)
-    if bound_id >= 0:
-        ok &= v == bound_id
+    bid = bound_id.reshape(())
+    ok = valid & bitmap_superset_ref(bitmap[vsafe], label_mask) \
+        & ((bid < 0) | (v == bid))
     oki = ok.to(torch.int32)
     pos = torch.where(ok, torch.cumsum(oki, 0, dtype=torch.int32) - 1,
                       capacity).long()

@@ -15,8 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_cases import (DELTA_CASES, EFC_CASES, bitmap_inputs,  # noqa: E402
-                         delta_inputs, edge_inputs, efc_inputs, same,
+from torch_cases import (DELTA_CASES, EFC_CASES, GATHER_FIXED_CASES,  # noqa: E402
+                         GATHER_SUM_CASES, bitmap_inputs, delta_inputs,
+                         edge_inputs, efc_inputs, gather_close,
+                         gather_fixed_inputs, gather_sum_inputs, same,
                          sig_inputs, tile_inputs, tt)
 
 
@@ -74,10 +76,18 @@ def test_cuda_signature_filter(cuda, v, w2, b):
 ])
 def test_cuda_expand_filter_compact(cuda, r, v, w, cap, with_mask, bound):
     args, bid, _ = efc_inputs(r, v, w, r + v, with_mask, bound)
-    got = ops.expand_filter_compact(*(tt(a, cuda) for a in args), bid, cap)
+    bid_t = tt(np.int32(bid), cuda)
+    got = ops.expand_filter_compact(*(tt(a, cuda) for a in args), bid_t, cap)
     torch.cuda.synchronize()
-    want = ref.expand_filter_compact_ref(*(tt(a, cuda) for a in args), bid,
+    want = ref.expand_filter_compact_ref(*(tt(a, cuda) for a in args), bid_t,
                                          cap)
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
+    # the bound id read from a parameter vector at a slot (a view)
+    params = tt(np.array([5, -1, bid], np.int32), cuda)
+    got = ops.expand_filter_compact(*(tt(a, cuda) for a in args), params[2],
+                                    cap)
+    torch.cuda.synchronize()
     for g_, w_ in zip(got, want):
         same(g_, w_)
 
@@ -89,9 +99,10 @@ def test_cuda_launch_counts(cuda):
     ops.bitmap_superset(tt(bm, cuda), tt(req, cuda))
     ops.bitmap_superset(tt(bm[:0], cuda), tt(req, cuda))  # empty: no launch
     assert ops.launches["bitmap_superset"] == 1
-    with pytest.raises(NotImplementedError):
-        t = tt(np.zeros(4, np.int32), cuda)
-        ops.segment_gather_sum(t.float()[:, None], t, t, 2)
+    t = tt(np.zeros(4, np.int32), cuda)
+    ops.segment_gather_sum(t.float()[:, None], t, t, 2)
+    ops.segment_gather_fixed(t.float()[:, None], t[:, None])
+    assert ops.launches["segment_gather"] == 2
 
 
 @pytest.mark.cuda
@@ -180,3 +191,88 @@ def test_cuda_live_store_matches_cpu(cuda):
             np.testing.assert_array_equal(got.rows, want.rows, err_msg=name)
             assert gpu.count(q) == want.count, (b, name)
     assert ops.launches["delta_merge"] > 0
+
+
+def _gather_on(cuda, arrs, dtype):
+    table, *ids, w = arrs
+    dt = getattr(torch, dtype)
+    return (torch.from_numpy(table).to(cuda, dt), [tt(a, cuda) for a in ids],
+            None if w is None else torch.from_numpy(w).to(cuda, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,s,k,weighted,dtype", GATHER_FIXED_CASES + [
+    (1_000_000, 64, 100_000, 8, True, "float32"),
+    (100_000, 100, 50_000, 40, False, "bfloat16"),
+])
+def test_cuda_segment_gather_fixed(cuda, v, d, s, k, weighted, dtype):
+    table, (idx,), w = _gather_on(
+        cuda, gather_fixed_inputs(v, d, s, k, weighted, seed=v + s), dtype)
+    ops.reset_launches()
+    got = ops.segment_gather_fixed(table, idx, w)
+    torch.cuda.synchronize()
+    assert ops.launches["segment_gather"] == 1
+    want = ref.segment_gather_fixed_ref(table, idx, w)
+    assert got.dtype == want.dtype
+    gather_close(got, want.float().cpu().numpy(), dtype, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,e,s,weighted,dtype", GATHER_SUM_CASES + [
+    (500_000, 100, 4_000_000, 200_000, True, "float32"),
+    (200_000, 64, 2_000_000, 5_000, False, "bfloat16"),  # runs of ~400
+])
+def test_cuda_segment_gather_sum(cuda, v, d, e, s, weighted, dtype):
+    table, (idx, seg), w = _gather_on(
+        cuda, gather_sum_inputs(v, d, e, s, weighted, seed=v + e), dtype)
+    got = ops.segment_gather_sum(table, idx, seg, s, w)
+    torch.cuda.synchronize()
+    want = ref.segment_gather_sum_ref(table, idx, seg, s, w)
+    gather_close(got, want.float().cpu().numpy(), dtype, -(-e // s))
+
+
+@pytest.mark.cuda
+def test_cuda_param_batch_matches_cpu(cuda):
+    """Query families on the card: every lane of a batch equals its own
+    ``execute_param`` run and the CPU run, with a missing-constant lane and
+    a capacity slack small enough that lanes overflow and rerun alone."""
+    import re
+
+    from repro_torch.core import ExecOpts, SparqlEngine
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.serve.fingerprint import parameterize_query
+
+    g, maps = type_aware_transform(
+        generate_lubm(scale=2, seed=0, density=0.6).finalize())
+    terms = maps.dict.terms.to_str
+    courses = [t for t in terms if re.match(r"ub:GraduateCourse\d", t)]
+    depts = [t for t in terms if re.match(r"ub:Dept\d", t)]
+    students = [t for t in terms
+                if re.match(r"ub:(Undergraduate|Graduate)Student\d", t)]
+    families = [
+        ["SELECT ?c ?t WHERE { %s ub:takesCourse ?c . ?t ub:teacherOf ?c . "
+         "?t ub:worksFor ?d . }" % c for c in students[:20]],
+        ["SELECT ?x WHERE { ?x rdf:type ub:GraduateStudent . "
+         "?x ub:takesCourse %s . }" % c
+         for c in courses[:11] + ["ub:NoSuchCourse9"]],
+        ["SELECT ?x ?y WHERE { ?x rdf:type ub:Student . ?x ub:memberOf %s . "
+         "?x ub:takesCourse ?y . ?y rdf:type ub:Course . "
+         "?z ub:teacherOf ?y . ?z ub:worksFor %s . }"
+         % (d, depts[(i * 7) % len(depts)] if i % 2 else d)
+         for i, d in enumerate(depts[:9])],
+    ]
+    cpu = SparqlEngine(g, maps, device="cpu")
+    for opts in (ExecOpts(), ExecOpts(cap_slack=1 / 16)):
+        gpu = SparqlEngine(g, maps, opts=opts)
+        for qs in families:
+            pqs = [parameterize_query(q) for q in qs]
+            fam, cfam = gpu.compile_param(pqs[0]), cpu.compile_param(pqs[0])
+            for collect in ("bindings", "count"):
+                got = gpu.execute_param_batch(fam, [pq.consts for pq in pqs],
+                                              collect)
+                for r, pq in zip(got, pqs):
+                    for want in (gpu.execute_param(fam, pq.consts, collect),
+                                 cpu.execute_param(cfam, pq.consts, collect)):
+                        assert r.count == want.count
+                        np.testing.assert_array_equal(r.rows, want.rows)

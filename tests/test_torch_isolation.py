@@ -31,6 +31,19 @@ store = VersionedStore(g, maps, auto_compact=False)
 store.apply_update("INSERT DATA { ub:IsoS ub:advisor ub:IsoO . }")
 eng.set_graph(store.snapshot())
 assert eng.count(LUBM_QUERIES["Q9"]) > 0
+import torch
+from repro_torch.kernels import ops
+from repro_torch.serve.fingerprint import parameterize_query
+tmpl = "SELECT ?x WHERE {{ ?x ub:takesCourse {c} . }}"
+pqs = [parameterize_query(tmpl.format(c=f"ub:Course{i}.Dept0.Univ0"))
+       for i in range(3)]
+fam = eng.compile_param(pqs[0])
+assert sum(r.count for r in eng.execute_param_batch(
+    fam, [pq.consts for pq in pqs])) > 0
+t = torch.ones((4, 2))
+i = torch.tensor([0, 5, -1], dtype=torch.int32)
+assert ops.segment_gather_sum(t, i, i.abs(), 2).shape == (2, 2)
+assert ops.segment_gather_fixed(t, i[None]).shape == (1, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.startswith("jax")
              or m.startswith("jaxlib"))

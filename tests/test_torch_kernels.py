@@ -23,8 +23,12 @@ from repro.kernels.signature_filter import signature_filter_pallas  # noqa: E402
 from repro.kernels.sorted_intersect import tile_membership_pallas  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro.kernels.delta_merge import delta_merge_pallas  # noqa: E402
-from torch_cases import (DELTA_CASES, EFC_CASES, bitmap_inputs,  # noqa: E402
-                         delta_inputs, edge_inputs, efc_inputs, same,
+from repro.kernels.segment_gather import (  # noqa: E402
+    segment_gather_fixed_pallas, segment_gather_sum_pallas)
+from torch_cases import (DELTA_CASES, EFC_CASES, GATHER_FIXED_CASES,  # noqa: E402
+                         GATHER_SUM_CASES, bitmap_inputs, delta_inputs,
+                         edge_inputs, efc_inputs, gather_close,
+                         gather_fixed_inputs, gather_sum_inputs, same,
                          sig_inputs, tile_inputs, tt)
 
 
@@ -92,17 +96,23 @@ def test_expand_filter_compact(r, v, w, cap, with_mask, bound):
     pallas = expand_filter_compact_pallas(*jargs, jnp.int32(bid),
                                           capacity=cap, interpret=True,
                                           tile=16)
-    got = ops.expand_filter_compact(*map(tt, args), bid, cap)
+    got = ops.expand_filter_compact(*map(tt, args), tt(np.int32(bid)), cap)
     for g_, w_, p_ in zip(got, want, pallas):
         same(g_, w_)
         same(g_, p_)
     if cap < total:
         assert int(got[2]) <= cap
+    # the bound id read from a parameter vector at a slot (a view)
+    params = tt(np.array([7, bid, -1], np.int32))
+    for g_, w_ in zip(ops.expand_filter_compact(*map(tt, args), params[1],
+                                                cap), want):
+        same(g_, w_)
 
 
 def test_expand_filter_compact_bound_filters_everything_else():
     args, bid, _ = efc_inputs(30, 12, 1, 5, with_mask=False)
-    v_out, row_out, count = ops.expand_filter_compact(*map(tt, args), bid, 256)
+    v_out, row_out, count = ops.expand_filter_compact(
+        *map(tt, args), tt(np.int32(bid)), 256)
     c = int(count)
     assert c > 0 and bool((v_out[:c] == bid).all())
     assert bool((v_out[c:] == -1).all()) and bool((row_out[c:] == -1).all())
@@ -175,6 +185,105 @@ def test_segment_gather_sum(v, d, e, s, weighted):
     got = ops.segment_gather_sum(tt(table), tt(idx), tt(seg), s,
                                  weights=None if w is None else tt(w))
     same(got, want)
+
+
+def test_expand_filter_compact_bound_slot_outside_raises():
+    args, bid, _ = efc_inputs(10, 16, 1, 3)
+    # a whole parameter vector where one slot's view belongs
+    params = tt(np.array([bid, -1], np.int32))
+    with pytest.raises(ValueError, match="bound id of 2 elements"):
+        ops.expand_filter_compact(*map(tt, args), params, 64)
+
+
+def _jnp(x):
+    """numpy -> jax, bfloat16 through float32 (numpy has no bfloat16)."""
+    if x is None:
+        return None
+    return jnp.asarray(x)
+
+
+def _gather_args(arrs, dtype):
+    """The same inputs for both packages: float arrays rounded to the
+    case's dtype first, so both see identical values."""
+    table, *rest, w = arrs
+    tt_table = torch.from_numpy(table).to(dtype)
+    j_table = jnp.asarray(tt_table.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    tw = None if w is None else torch.from_numpy(w).to(dtype)
+    jw = None if w is None else jnp.asarray(tw.float().numpy()).astype(
+        j_table.dtype)
+    return (tt_table, [tt(a) for a in rest], tw), (j_table,
+                                                   [jnp.asarray(a)
+                                                    for a in rest], jw)
+
+
+@pytest.mark.parametrize("v,d,s,k,weighted,dtype", GATHER_FIXED_CASES)
+def test_segment_gather_fixed(v, d, s, k, weighted, dtype):
+    """The fixed layout against the TPU kernel in interpret mode: -1 pads,
+    an index >= V reads row V-1, all-padding rows sum to zero."""
+    dt = getattr(torch, dtype)
+    arrs = gather_fixed_inputs(v, d, s, k, weighted, seed=v + s + k)
+    (t_table, (t_idx,), t_w), (j_table, (j_idx,), j_w) = _gather_args(
+        arrs, dt)
+    got = ops.segment_gather_fixed(t_table, t_idx, weights=t_w)
+    want = segment_gather_fixed_pallas(j_table, j_idx, j_w, interpret=True)
+    assert got.dtype == dt and tuple(got.shape) == (s, d)
+    gather_close(got, np.asarray(want.astype(jnp.float32)), dtype, k)
+    assert not got[(t_idx < 0).all(1)].any()
+
+
+@pytest.mark.parametrize("v,d,e,s,weighted,dtype", GATHER_SUM_CASES)
+def test_segment_gather_sum_semantics(v, d, e, s, weighted, dtype):
+    """The ragged form against the reference's plain version on every
+    entry (negative and out-of-range ids and segments, empty segments), and
+    against the TPU wrapper in interpret mode.  That wrapper's regrouped
+    fast path masks a negative index as padding and folds a negative
+    segment into segment S-1, where its own oracle (and the port) count a
+    negative index from the end and drop the segment; so it is held on the
+    entries with non-negative ids and segments, and on every entry when
+    E > 32 * S, where it falls back to its oracle."""
+    dt = getattr(torch, dtype)
+    arrs = gather_sum_inputs(v, d, e, s, weighted, seed=v + e + s)
+    (t_table, (t_idx, t_seg), t_w), (j_table, (j_idx, j_seg), j_w) = \
+        _gather_args(arrs, dt)
+    hot = -(-e // s)
+    if dt == torch.bfloat16 and hot > 32:
+        # the reference's segment_sum adds bfloat16 rows in bfloat16, which
+        # drifts by up to 4% over runs of ~150; the port sums in float32,
+        # so long runs are held against the reference computed in float32
+        # on the same bfloat16 values
+        j_table = j_table.astype(jnp.float32)
+        j_w = None if j_w is None else j_w.astype(jnp.float32)
+    got = ops.segment_gather_sum(t_table, t_idx, t_seg, s, weights=t_w)
+    assert got.dtype == dt and tuple(got.shape) == (s, d)
+    want = jref.segment_gather_sum_ref(j_table, j_idx, j_seg, s, weights=j_w)
+    gather_close(got, np.asarray(want.astype(jnp.float32)), dtype, hot)
+    sel = (arrs[1] >= 0) & (arrs[2] >= 0)
+    if e > 32 * s:
+        sel[:] = True
+    sub = [tt(a[sel]) for a in arrs[1:3]]
+    sub_w = None if t_w is None else t_w[torch.from_numpy(sel)]
+    got = ops.segment_gather_sum(t_table, *sub, s, weights=sub_w)
+    want = segment_gather_sum_pallas(
+        j_table, jnp.asarray(arrs[1][sel]), jnp.asarray(arrs[2][sel]), s,
+        weights=None if j_w is None else j_w[jnp.asarray(sel)],
+        interpret=True)
+    gather_close(got, np.asarray(want.astype(jnp.float32)), dtype, hot)
+
+
+def test_segment_gather_sum_index_rules():
+    """The rules on a 4-row table: -1 reads row 3, -6 row 0, 5 row 3;
+    segments 7 and -1 are dropped."""
+    table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    idx = tt(np.array([0, 5, -1, -6, 2, 3], np.int32))
+    seg = tt(np.array([0, 0, 1, 1, 7, -1], np.int32))
+    got = ops.segment_gather_sum(table, idx, seg, 3)
+    want = jref.segment_gather_sum_ref(jnp.asarray(table.numpy()),
+                                       jnp.asarray(idx.numpy()),
+                                       jnp.asarray(seg.numpy()), 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), [[9, 11, 13], [9, 11, 13], [0, 0, 0]])
 
 
 def test_cpu_calls_count_no_launches():

@@ -145,3 +145,63 @@ DELTA_CASES = [
     (300, 200, 50, 30, 4, "base"),      # all-base rows, tombstone hits
     (500, 4000, 64, 3000, 1500, "mixed"),  # tombstone runs longer than 256
 ]
+
+
+# segment_gather: (v, d, s, k, weighted, dtype) for the fixed layout and
+# (v, d, e, s, weighted, dtype) for the ragged form; E > 32 * S in the last
+# ragged cases (the TPU wrapper falls back to its oracle there)
+GATHER_FIXED_CASES = [
+    (1, 1, 1, 1, False, "float32"),
+    (40, 16, 30, 8, False, "float32"),
+    (40, 64, 33, 8, True, "float32"),
+    (300, 100, 50, 32, True, "float32"),
+    (300, 200, 20, 5, True, "float32"),  # two feature tiles
+    (40, 64, 33, 8, False, "bfloat16"),
+    (300, 100, 50, 32, True, "bfloat16"),
+]
+GATHER_SUM_CASES = [
+    (4, 3, 6, 3, False, "float32"),
+    (50, 16, 300, 40, True, "float32"),
+    (200, 64, 1000, 120, True, "float32"),
+    (200, 100, 1000, 120, False, "bfloat16"),
+    (200, 64, 1000, 120, True, "bfloat16"),
+    (60, 100, 3000, 20, True, "float32"),  # runs of ~150
+    (60, 64, 3000, 20, True, "bfloat16"),
+]
+
+
+def gather_fixed_inputs(v, d, s, k, weighted, seed):
+    """``(table, idx [S, K], weights)``: ids in ``[-3, v + 3)`` (negative =
+    padding, ``>= v`` clamps), every third row all padding."""
+    rng = np.random.default_rng(seed)
+    table = rng.random((v, d), dtype=np.float32)
+    idx = rng.integers(-3, v + 3, size=(s, k)).astype(np.int32)
+    idx[::3] = -1
+    w = rng.random((s, k), dtype=np.float32) + 0.5 if weighted else None
+    return table, idx, w
+
+
+def gather_sum_inputs(v, d, e, s, weighted, seed):
+    """``(table, indices, segments, weights)``: ids in ``[-v - 3, v + 3)``,
+    segments in ``[-2, s + 2)`` with every fourth segment left empty."""
+    rng = np.random.default_rng(seed)
+    table = rng.random((v, d), dtype=np.float32)
+    idx = rng.integers(-v - 3, v + 3, size=e).astype(np.int32)
+    seg = rng.integers(-2, s + 2, size=e).astype(np.int32)
+    seg[(seg >= 0) & (seg % 4 == 1)] = s + 1
+    w = rng.random(e, dtype=np.float32) + 0.5 if weighted else None
+    return table, idx, seg, w
+
+
+def gather_close(got, want, dtype: str, hot: int) -> None:
+    """The stated tolerances of ``segment_gather``, whose sums run in
+    another order (and, for bfloat16, another precision) than the
+    reference's: float32 ``rtol=atol=1e-5`` for runs of at most 32 entries
+    and ``1e-4`` for longer runs; bfloat16 ``rtol=2e-2`` (about 5 of its 8
+    mantissa bits), ``atol=2e-2``."""
+    got = got.float().cpu().numpy()
+    if dtype == "bfloat16":
+        tol = 2e-2
+    else:
+        tol = 1e-5 if hot <= 32 else 1e-4
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
