@@ -11,7 +11,13 @@ Phases, each fatal on failure (no phase's error is caught):
 3. hold each kernel against its plain PyTorch version on synthetic CUDA
    inputs (``delta_merge`` also on empty arrays, tombstone runs longer than
    256 and a base array of more than 2^20 words; ``expand_filter_compact``
-   with its bound id read from a parameter vector; ``segment_gather`` fixed
+   with its bound id read from a parameter vector, and on the look-back's
+   hard cases of ``tests/torch_cases.py``: every slot surviving at capacity
+   2^22, none, survivors only in the last tile, total = capacity +- 1, long
+   zero-degree runs, a bound id matching one slot, 50 back-to-back calls at
+   mixed capacities and calls on two streams in flight together;
+   ``signature_filter`` on 1 to 9 ids, aligned and as a ``v[1:]`` view, and
+   on its 4-byte row path; ``segment_gather`` fixed
    and ragged, weighted and not, float32 and bfloat16, with negative and
    out-of-range ids and segments, within the tolerances it prints);
 4. parity scale: LUBM (scale 8, density 0.6) and BSBM (3000 products)
@@ -42,8 +48,12 @@ Phases, each fatal on failure (no phase's error is caught):
    batch run with a small capacity slack must rerun an overflowing lane
    alone;
 6. each engine kernel's wrapper on the largest inputs the main path gave
-   it (phases 4-5c), held bit-equal against its plain version and timed
-   beside it with CUDA events, with its byte bound; and ``segment_gather``
+   it (phases 4-5c), and ``expand_filter_compact`` and ``signature_filter``
+   also on the smallest, held bit-equal against its plain version and timed
+   beside it with CUDA events, with its byte bound (and, for
+   ``signature_filter``, the distinct 32-byte sectors its gathers touch);
+   the ``expand_filter_compact`` calls of each path counted by power-of-two
+   capacity; and ``segment_gather``
    at its users' shapes (DLRM RM-2's largest table looked up by a
    ``serve_bulk`` batch; GCN aggregation over ``ogb_products``), held
    against its plain version within tolerance and timed beside it and
@@ -62,6 +72,9 @@ after it; a kernel of a path launched no time in that path's window fails
 the run.  The last lines are the ``kernels`` JSON object (``launches`` is
 the sum of the windows, ``launches_by_path`` each window's count), then
 the device line.  Details go to ``chiprun_out/chip_smoke.json``.
+``--save-calls FILE`` also saves the recorded calls of the two redesigned
+kernels for ``tools/kernel_ab.py``, which times them against another
+tree's kernels.
 """
 
 from __future__ import annotations
@@ -106,6 +119,8 @@ KERNEL_INFO = {
 # recorder keeps their largest calls for phase 6
 ENGINE_KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
                   "bitmap_superset", "signature_filter", "delta_merge")
+# the redesigned kernels, also timed at their smallest main-path call
+SMALLEST = ("expand_filter_compact", "signature_filter")
 # the kernels each path must launch: the static path has no delta, and in
 # delta mode non-tree joins take edge_exists, never tile_membership; the
 # params path's non-tree joins are F4's and F5's, and its fused steps are
@@ -139,13 +154,17 @@ def check(cond: bool, msg: str) -> None:
 
 class Recorder:
     """Wraps the kernel entry points of ``repro_torch.kernels.ops`` and keeps
-    the arguments of the largest call of each kernel, so phase 6
-    can rerun it at the main path's own shapes.  The wrapped call is the
-    original wrapper, so launch counts are unchanged."""
+    the arguments of the largest call of each kernel (and of the smallest
+    call of each of ``SMALLEST``), so phase 6 can rerun them at the main
+    path's own shapes; it also counts ``expand_filter_compact`` calls by
+    power-of-two capacity in each path.  The wrapped call is the original
+    wrapper, so launch counts are unchanged."""
 
     def __init__(self, ops):
         self.ops = ops
         self.calls: dict[str, tuple] = {}
+        self.smallest: dict[str, tuple] = {}
+        self.cap_hist: dict[str, dict[int, int]] = {}
         self.orig = {name: getattr(ops, name) for name in ENGINE_KERNELS}
 
     @staticmethod
@@ -160,7 +179,8 @@ class Recorder:
             return (int(args[8].shape[0]),)  # slots
         return (int(args[0].shape[0]),)  # tile_membership, bitmap_superset
 
-    def install(self) -> None:
+    def install(self, path: str) -> None:
+        hist = self.cap_hist.setdefault(path, {})
         for name, fn in self.orig.items():
             def wrapped(*args, _name=name, _fn=fn, **kw):
                 if args[0].is_cuda:
@@ -168,6 +188,12 @@ class Recorder:
                     best = self.calls.get(_name)
                     if best is None or r > best[0]:
                         self.calls[_name] = (r, args, kw)
+                    low = self.smallest.get(_name)
+                    if _name in SMALLEST and (low is None or r < low[0]):
+                        self.smallest[_name] = (r, args, kw)
+                    if _name == "expand_filter_compact":
+                        b = 1 << (int(args[7]) - 1).bit_length()
+                        hist[b] = hist.get(b, 0) + 1
                 return _fn(*args, **kw)
             setattr(self.ops, name, wrapped)
 
@@ -179,17 +205,31 @@ class Recorder:
 # ------------------------------------------------------------------ timing
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
+# device cycles the card idles (torch.cuda._sleep, about a millisecond)
+# before a timed call, while the host enqueues it
+HEAD_START_CYCLES = 2_000_000
+
+
+def time_ms(torch, fn, reps: int = 20, flush_l2: bool = True,
+            head_start: bool = True) -> float:
     """Median device time of ``fn`` over ``reps`` runs, CUDA events around
-    each; the 50 MB L2 is flushed before each run, as the main path finds
-    its inputs after other steps' traffic."""
+    each.  Before each run the 50 MB L2 is flushed (unless ``flush_l2`` is
+    False), as the main path finds its inputs after other steps' traffic,
+    and the card is held busy for about a millisecond (unless
+    ``head_start`` is False) while the host enqueues the run, so the events
+    time the device, not the wrapper's host work (which exceeds a small
+    kernel's device time several times over).  A call that takes the host
+    longer than the head start counts its host time beyond it."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if flush_l2:
+            flush.zero_()
+        if head_start:
+            torch.cuda._sleep(HEAD_START_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -199,6 +239,18 @@ def time_ms(torch, fn, reps: int = 20) -> float:
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_ms(torch, fn, reps: int = 100) -> float:
+    """The host's time per call of ``fn`` (its wrapper's Python and the
+    launch), over ``reps`` calls enqueued back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def bound(torch, ref, name, args, kw) -> tuple[float, float, str]:
@@ -412,7 +464,90 @@ def synthetic_checks(torch, ops, ref) -> None:
         err = max_abs_err(torch, got, plain())
         check(err == 0, f"{label}: kernel differs from its plain version")
     log(f"phase 3: {len(cases)} kernel checks bit-equal to the plain versions")
+    edge_checks(torch, ops, ref)
     gather_checks(torch, ops, ref, rng)
+
+
+def edge_checks(torch, ops, ref) -> None:
+    """Phase 3, the hard cases of the two redesigned kernels, from
+    ``tests/torch_cases.py``: ``expand_filter_compact`` on
+    ``EFC_EDGE_CASES`` (one launch each), 50 back-to-back calls at mixed
+    capacities on one stream, and calls on two streams in flight together,
+    each look-back ticket word then counting its stream's calls;
+    ``signature_filter`` on 1 to 9 ids, aligned and as a ``v[1:]`` view,
+    and on rows of an odd word count and a table that is not 8-byte
+    aligned."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (EFC_BACK_TO_BACK_CAPS, EFC_EDGE_CASES,
+                             EFC_STREAM_SETS, SIG_EDGE_CASES,
+                             efc_edge_inputs, efc_inputs,
+                             efc_tickets_settled, sig_inputs, tt)
+
+    dev = "cuda"
+    n = 0
+
+    def equal(got, want, what: str) -> None:
+        nonlocal n
+        torch.cuda.synchronize()
+        check(max_abs_err(torch, got, want) == 0,
+              f"{what}: kernel differs from its plain version")
+        n += 1
+
+    for kind, cap in EFC_EDGE_CASES:
+        args, bid = efc_edge_inputs(kind, cap)
+        targs = [tt(a, dev) for a in args]
+        tbid = tt(np.int32(bid), dev)
+        before = ops.launches["expand_filter_compact"]
+        got = ops.expand_filter_compact(*targs, tbid, cap)
+        check(ops.launches["expand_filter_compact"] == before + 1,
+              f"expand_filter_compact {kind}: not one launch")
+        equal(got, ref.expand_filter_compact_ref(*targs, tbid, cap),
+              f"expand_filter_compact {kind} cap={cap}")
+    sets = []
+    for r, v, w, bid0 in EFC_STREAM_SETS:
+        args, bid, _ = efc_inputs(r, v, w, r + v, True, bid0)
+        sets.append(([tt(a, dev) for a in args], tt(np.int32(bid), dev)))
+    torch.cuda.synchronize()
+    runs = [(i % 3, cap, ops.expand_filter_compact(*sets[i % 3][0],
+                                                   sets[i % 3][1], cap))
+            for i, cap in enumerate(EFC_BACK_TO_BACK_CAPS)]
+    s2 = torch.cuda.Stream()
+    for i in range(10):
+        cap = (1 << 20, 1 << 14, 5000)[i % 3]
+        runs.append((0, cap, ops.expand_filter_compact(*sets[0][0],
+                                                       sets[0][1], cap)))
+        with torch.cuda.stream(s2):
+            k = 1 + i % 2
+            runs.append((k, 4096, ops.expand_filter_compact(
+                *sets[k][0], sets[k][1], 4096)))
+    torch.cuda.synchronize()
+    for k, cap, got in runs:
+        equal(got, ref.expand_filter_compact_ref(*sets[k][0], sets[k][1],
+                                                 cap),
+              f"expand_filter_compact back to back, set {k} cap={cap}")
+    check(efc_tickets_settled(ops),
+          "a look-back ticket word does not count its stream's calls")
+    for n_ids, w2 in SIG_EDGE_CASES:
+        sig, ids, req = sig_inputs(50, w2, n_ids + 1, n_ids * 11 + w2)
+        tsig, tids, treq = tt(sig, dev), tt(ids, dev), tt(req, dev)
+        for view in (tids[:n_ids], tids[1:]):
+            equal(ops.signature_filter(tsig, view, treq),
+                  ref.signature_filter_ref(tsig, view, treq),
+                  f"signature_filter n={n_ids} w2={w2} "
+                  f"at {view.data_ptr() % 16}")
+    for w2, offset in ((3, 0), (2, 1), (10, 1)):
+        sig, ids, req = sig_inputs(3000, w2, 100_003, w2 + offset)
+        flat = torch.empty(sig.size + offset, dtype=torch.int32, device=dev)
+        flat[offset:] = tt(sig, dev).reshape(-1)
+        tsig = flat[offset:].view(sig.shape)
+        tids, treq = tt(ids, dev), tt(req, dev)
+        for view in (tids, tids[1:]):
+            equal(ops.signature_filter(tsig, view, treq),
+                  ref.signature_filter_ref(tsig, view, treq),
+                  f"signature_filter 4-byte rows w2={w2} offset={offset}")
+    log(f"phase 3: {n} look-back and alignment edge checks of "
+        f"expand_filter_compact and signature_filter bit-equal to the plain "
+        f"versions; ticket words settled")
 
 
 def gather_checks(torch, ops, ref, rng) -> None:
@@ -1116,38 +1251,75 @@ def kernel_table(torch, ops, ref, rec: Recorder,
         "signature_filter": ref.signature_filter_ref,
         "delta_merge": ref.delta_merge_ref,
     }
-    table = []
-    for name in ENGINE_KERNELS:
-        check(name in rec.calls, f"{name}: no call recorded on the main path")
-        rows, args, kw = rec.calls[name]
+    def timed_call(name, rows, args, kw) -> dict:
         kern = getattr(ops, name)
         got = kern(*args, **kw)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, plains[name](*args, **kw))
         check(err == 0, f"{name}: kernel differs from its plain version at "
-                        f"the main path's shapes")
-        ms = time_ms(torch, lambda: kern(*args, **kw))
-        plain_ms = time_ms(torch, lambda: plains[name](*args, **kw))
+                        f"the main path's shapes {rows}")
         byts, nops, by = bound(torch, ref, name, args, kw)
+        out = {"shape_rows": rows, "max_abs_err": err,
+               "ms": time_ms(torch, lambda: kern(*args, **kw)),
+               "host_ms": host_ms(torch, lambda: kern(*args, **kw)),
+               "plain_ms": time_ms(torch, lambda: plains[name](*args, **kw)),
+               "bound_ms": max(byts / PEAK_BYTES_S,
+                               nops / PEAK_OPS_S) * 1e3,
+               "bound_by": by, "bytes": byts, "ops": nops,
+               "shapes": [list(a.shape) for a in args
+                          if isinstance(a, torch.Tensor)]}
+        if name == "signature_filter":
+            # the card moves 32-byte sectors: the rows' distinct sectors, and
+            # the time they take at the peak rate beside the ids and the out
+            sig, v, req = args
+            sectors = sig_sectors(torch, sig, v)
+            out["sectors"] = sectors
+            out["sector_ms"] = (32 * sectors + 4 * v.shape[0] + v.shape[0]
+                                + 4 * req.shape[0]) / PEAK_BYTES_S * 1e3
+        log(f"phase 6: {name}: rows {rows} kernel {out['ms']:.4f} ms (host "
+            f"{out['host_ms']:.4f} ms per call) plain "
+            f"{out['plain_ms']:.4f} ms bound {out['bound_ms']:.4f} ms"
+            + (f" ({out['sectors']} sectors: {out['sector_ms']:.4f} ms)"
+               if "sectors" in out else ""))
+        return out
+
+    table = []
+    floor = launch_floor_ms(torch)
+    log(f"phase 6: one launch of a one-element fill: {floor:.4f} ms")
+    for name in ENGINE_KERNELS:
+        check(name in rec.calls, f"{name}: no call recorded on the main path")
+        rows, args, kw = rec.calls[name]
         if name == "delta_merge":  # slots, then the valid ones
             rows = (*rows, int(args[9].sum().item()))
         source, replaces = KERNEL_INFO[name]
-        table.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": sum(int(c[name]) for c in by_path.values()),
-            "launches_by_path": {p: int(c[name])
-                                 for p, c in by_path.items()},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(byts / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3,
-            "bound_by": by, "library_ms": None,
-            "shape_rows": rows, "bytes": byts, "ops": nops,
-            "shapes": [list(a.shape) for a in args
-                       if isinstance(a, torch.Tensor)],
-        })
-        log(f"phase 6: {name}: rows {rows} kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms bound {table[-1]['bound_ms']:.4f} ms")
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(int(c[name]) for c in by_path.values()),
+               "launches_by_path": {p: int(c[name])
+                                    for p, c in by_path.items()},
+               "library_ms": None, **timed_call(name, rows, args, kw)}
+        if name in SMALLEST:
+            row["smallest"] = timed_call(name, *rec.smallest[name])
+            row["launch_floor_ms"] = floor
+        table.append(row)
     return table
+
+
+def launch_floor_ms(torch) -> float:
+    """The device time of one launch that does almost nothing (a
+    one-element fill), timed as ``time_ms`` times a kernel."""
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return time_ms(torch, lambda: one.fill_(1))
+
+
+def sig_sectors(torch, sig, v) -> int:
+    """The distinct 32-byte sectors of ``sig`` that gathering the rows
+    ``clamp(v)`` touches."""
+    w2 = sig.shape[1]
+    rows = v.clamp(0, sig.shape[0] - 1).long()
+    byte = (sig.data_ptr() % 32 + rows[:, None] * (4 * w2)
+            + 4 * torch.arange(w2, device=v.device))
+    return torch.unique(byte // 32).numel()
 
 
 # the users' shapes of segment_gather (src/repro/configs/): DLRM RM-2's
@@ -1299,6 +1471,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=1000,
                     help="LUBM universities at full scale (default 1000)")
+    ap.add_argument("--save-calls", type=Path, default=None,
+                    help="also save the largest and smallest recorded calls "
+                         "of expand_filter_compact and signature_filter "
+                         "(torch.save) for tools/kernel_ab.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -1339,7 +1515,7 @@ def main(argv=None) -> int:
     def window(path: str, drive):
         """Drive one path with the launch counters set to 0 just before and
         read just after; each kernel of the path must have launched."""
-        rec.install()
+        rec.install(path)
         ops.reset_launches()
         out = drive()
         torch.cuda.synchronize()
@@ -1367,10 +1543,20 @@ def main(argv=None) -> int:
     table = kernel_table(torch, ops, ref, rec, by_path)
     table.append(gather_row(torch, ops, ref, inputs, outs, by_path))
     del inputs, outs
+    if args.save_calls is not None:
+        args.save_calls.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({name: {"largest": rec.calls[name][1],
+                           "smallest": rec.smallest[name][1]}
+                    for name in SMALLEST}, args.save_calls)
+    hist = {p: {str(c): n for c, n in sorted(h.items())}
+            for p, h in rec.cap_hist.items()}
+    log(f"phase 6: expand_filter_compact calls by power-of-two capacity: "
+        f"{hist}")
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "kernels": table,
+              "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -34,11 +34,12 @@ I = ctypes.c_int
 # C signature of each exported launcher (every one returns cudaError_t)
 SIGNATURES: dict[str, tuple[str, list]] = {
     "expand_filter": ("repro_expand_filter_compact",
-                      [P, I, P, I, I, P, P, P, I, P, P, I, P, P, P, P, P]),
+                      [P, I, P, I, I, P, P, P, I, P, P, I, P, P, P, P, I, P]),
     "edge_exists": ("repro_edge_exists", [P, P, P, P, P, I, I, I, P]),
     "tile_membership": ("repro_tile_membership", [P, P, P, I, I, I, P]),
     "bitmap_superset": ("repro_bitmap_superset", [P, P, P, I, I, P]),
-    "signature_filter": ("repro_signature_filter", [P, P, P, P, I, I, I, P]),
+    "signature_filter": ("repro_signature_filter",
+                         [P, P, P, P, I, I, I, I, P]),
     "delta_merge": ("repro_delta_merge",
                     [P, I, P, I, P, I, P, P, P, P, P, P, P, P, P, I, I, P]),
     "segment_gather": ("repro_segment_gather",

@@ -27,8 +27,16 @@ KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
            "segment_gather")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# capacity bound of the compaction kernel's one-block scan of block counts
+# capacity bound of the compaction kernel (``ExecOpts.max_cap``); its status
+# buffer holds one word per tile of 1024 slots, then its ticket word
 MAX_CAPACITY = 1 << 22
+_EFC_SCRATCH_WORDS = MAX_CAPACITY // 1024 + 1
+# calls on one buffer before it is zeroed again: the kernel tags status
+# words with the call's epoch modulo 2^39, so no old word is mistaken for
+# the current call's
+_EFC_EPOCH_PERIOD = 1 << 38
+# (device index, stream) -> [status buffer, calls made on it since zeroed]
+_EFC_SCRATCH: dict[tuple[int, int], list] = {}
 
 
 def reset_launches() -> None:
@@ -128,10 +136,19 @@ def signature_filter(sig, v, required):
     _check("signature_filter", sig, v, required,
            words=(required, sig.shape[1]))
     n = v.shape[0]
-    out = torch.empty(n, dtype=torch.bool, device=v.device)
+    # the kernel stores 4 results as one 32-bit word from v's first 16-byte
+    # boundary (``head`` ids in): place out so that word is aligned
+    head = -v.data_ptr() % 16 // 4
+    if head == 0:
+        out = torch.empty(n, dtype=torch.bool, device=v.device)
+    else:
+        out = torch.empty(n + 3, dtype=torch.bool,
+                          device=v.device)[-head % 4:][:n]
     if n:
+        # rows as 8-byte words where sig is 8-byte aligned and rows even
+        wide = int(sig.data_ptr() % 8 == 0 and sig.shape[1] % 2 == 0)
         _launch("signature_filter", "signature_filter", sig, v, required,
-                out, n, sig.shape[0], sig.shape[1])
+                out, n, sig.shape[0], sig.shape[1], wide)
     return out
 
 
@@ -163,14 +180,31 @@ def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
     v_out = torch.empty(capacity, dtype=torch.int32, device=dev)
     row_out = torch.empty(capacity, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(-(-capacity // 1024), dtype=torch.int32,
-                          device=dev)
+    scratch = _efc_scratch(dev)
     _launch("expand_filter_compact", "expand_filter", nbr,
             max(1, nbr.shape[0]), bitmap, bitmap.shape[0],
             bitmap.shape[1], start, deg, offs,
             offs.shape[0], label_mask, bound_id, capacity,
-            v_out, row_out, count, scratch)
+            v_out, row_out, count, scratch, scratch.shape[0])
     return v_out, row_out, count
+
+
+def _efc_scratch(dev: torch.device) -> torch.Tensor:
+    """The compaction kernel's look-back status words and ticket word for
+    the current stream of ``dev``, so calls on one stream share it and
+    calls on two streams never do.  It is zeroed when made and then once
+    every ``_EFC_EPOCH_PERIOD`` calls; in between, each call moves the
+    epoch kept in it on by one, on the device."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    entry = _EFC_SCRATCH.get(key)
+    if entry is None:
+        entry = _EFC_SCRATCH[key] = [
+            torch.zeros(_EFC_SCRATCH_WORDS, dtype=torch.int64, device=dev), 0]
+    elif entry[1] >= _EFC_EPOCH_PERIOD:
+        entry[0].zero_()
+        entry[1] = 0
+    entry[1] += 1
+    return entry[0]
 
 
 def ragged_expand(offsets, degrees, capacity: int):

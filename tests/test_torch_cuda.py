@@ -15,9 +15,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_cases import (DELTA_CASES, EFC_CASES, GATHER_FIXED_CASES,  # noqa: E402
-                         GATHER_SUM_CASES, bitmap_inputs, delta_inputs,
-                         edge_inputs, efc_inputs, gather_close,
+from torch_cases import (DELTA_CASES, EFC_BACK_TO_BACK_CAPS,  # noqa: E402
+                         EFC_CASES, EFC_EDGE_CASES, EFC_STREAM_SETS,
+                         GATHER_FIXED_CASES, GATHER_SUM_CASES,
+                         SIG_EDGE_CASES, bitmap_inputs, delta_inputs,
+                         edge_inputs, efc_edge_inputs, efc_inputs,
+                         efc_tickets_settled, gather_close,
                          gather_fixed_inputs, gather_sum_inputs, same,
                          sig_inputs, tile_inputs, tt)
 
@@ -59,7 +62,8 @@ def test_cuda_bitmap_superset(cuda, b, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v,w2,b", [(1, 2, 3), (300, 4, 77),
-                                    (200000, 10, 100000)])
+                                    (200000, 10, 100000),
+                                    (2_641_315, 2, 1 << 20)])
 def test_cuda_signature_filter(cuda, v, w2, b):
     sig, ids, req = sig_inputs(v, w2, b, v + b)
     got = ops.signature_filter(tt(sig, cuda), tt(ids, cuda), tt(req, cuda))
@@ -90,6 +94,133 @@ def test_cuda_expand_filter_compact(cuda, r, v, w, cap, with_mask, bound):
     torch.cuda.synchronize()
     for g_, w_ in zip(got, want):
         same(g_, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w2", SIG_EDGE_CASES)
+def test_cuda_signature_filter_edge_cases(cuda, n, w2):
+    """1 to 9 ids around the kernel's groups of 4, out-of-range ids, on an
+    aligned v and on a ``v[1:]`` view (a scalar head before the first
+    16-byte boundary)."""
+    sig, ids, req = sig_inputs(50, w2, n + 1, n * 11 + w2)
+    tsig, tids, treq = tt(sig, cuda), tt(ids, cuda), tt(req, cuda)
+    for view in (tids[:n], tids[1:]):
+        got = ops.signature_filter(tsig, view, treq)
+        torch.cuda.synchronize()
+        same(got, ref.signature_filter_ref(tsig, view, treq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w2,offset", [(3, 0), (2, 1), (10, 1)])
+def test_cuda_signature_filter_scalar_rows(cuda, w2, offset):
+    """Rows of an odd word count, and a table view that is not 8-byte
+    aligned, take the kernel's 4-byte row path."""
+    sig, ids, req = sig_inputs(3000, w2, 100_003, w2 + offset)
+    flat = torch.empty(sig.size + offset, dtype=torch.int32, device=cuda)
+    flat[offset:] = tt(sig, cuda).reshape(-1)
+    tsig = flat[offset:].view(sig.shape)
+    assert tsig.is_contiguous() and (tsig.data_ptr() % 8 != 0) == offset
+    tids, treq = tt(ids, cuda), tt(req, cuda)
+    for view in (tids, tids[1:]):
+        got = ops.signature_filter(tsig, view, treq)
+        torch.cuda.synchronize()
+        same(got, ref.signature_filter_ref(tsig, view, treq))
+
+
+def _efc_scratch_settled() -> bool:
+    torch.cuda.synchronize()
+    return efc_tickets_settled(ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cap", EFC_EDGE_CASES)
+def test_cuda_expand_filter_compact_edge_cases(cuda, kind, cap):
+    args, bid = efc_edge_inputs(kind, cap)
+    targs = [tt(a, cuda) for a in args]
+    bid_t = tt(np.int32(bid), cuda)
+    ops.reset_launches()
+    got = ops.expand_filter_compact(*targs, bid_t, cap)
+    torch.cuda.synchronize()
+    assert ops.launches["expand_filter_compact"] == 1
+    want = ref.expand_filter_compact_ref(*targs, bid_t, cap)
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
+    assert _efc_scratch_settled()
+
+
+def _efc_sets(cuda):
+    sets = []
+    for r, v, w, bound in EFC_STREAM_SETS:
+        args, bid, _ = efc_inputs(r, v, w, r + v, True, bound)
+        sets.append(([tt(a, cuda) for a in args], tt(np.int32(bid), cuda)))
+    return sets
+
+
+@pytest.mark.cuda
+def test_cuda_expand_filter_compact_back_to_back(cuda):
+    """50 calls at mixed capacities on one stream with no sync between
+    them, so each call reuses the status buffer the call before it left;
+    then each result against its plain version."""
+    sets = _efc_sets(cuda)
+    runs = []
+    for i, cap in enumerate(EFC_BACK_TO_BACK_CAPS):
+        args, bid = sets[i % 3]
+        runs.append((args, bid, cap,
+                     ops.expand_filter_compact(*args, bid, cap)))
+    torch.cuda.synchronize()
+    for args, bid, cap, got in runs:
+        for g_, w_ in zip(got, ref.expand_filter_compact_ref(*args, bid,
+                                                             cap)):
+            same(g_, w_)
+    assert _efc_scratch_settled()
+
+
+@pytest.mark.cuda
+def test_cuda_expand_filter_compact_two_streams(cuda):
+    """Calls on the default stream and on a second stream, in flight
+    together: each stream has its own status buffer."""
+    sets = _efc_sets(cuda)
+    torch.cuda.synchronize()
+    s2 = torch.cuda.Stream()
+    runs = []
+    for i in range(10):
+        cap = (1 << 20, 1 << 14, 5000)[i % 3]
+        args, bid = sets[0]
+        runs.append((args, bid, cap,
+                     ops.expand_filter_compact(*args, bid, cap)))
+        with torch.cuda.stream(s2):
+            args2, bid2 = sets[1 + i % 2]
+            runs.append((args2, bid2, 4096,
+                         ops.expand_filter_compact(*args2, bid2, 4096)))
+    torch.cuda.synchronize()
+    streams = {stream for _, stream in ops._EFC_SCRATCH}
+    assert {torch.cuda.current_stream().cuda_stream, s2.cuda_stream} <= \
+        streams
+    for args, bid, cap, got in runs:
+        for g_, w_ in zip(got, ref.expand_filter_compact_ref(*args, bid,
+                                                             cap)):
+            same(g_, w_)
+    assert _efc_scratch_settled()
+
+
+@pytest.mark.cuda
+def test_cuda_expand_filter_compact_epoch_period(cuda, monkeypatch):
+    """The status buffer zeroed again every few calls (the period cut from
+    2^38 to 3): calls before and after each zeroing stay exact."""
+    monkeypatch.setattr(ops, "_EFC_EPOCH_PERIOD", 3)
+    sets = _efc_sets(cuda)
+    runs = []
+    for i in range(10):
+        cap = (1 << 20, 5000, 1 << 14, 1 << 22)[i % 4]
+        args, bid = sets[i % 2]
+        runs.append((args, bid, cap,
+                     ops.expand_filter_compact(*args, bid, cap)))
+    torch.cuda.synchronize()
+    for args, bid, cap, got in runs:
+        for g_, w_ in zip(got, ref.expand_filter_compact_ref(*args, bid,
+                                                             cap)):
+            same(g_, w_)
+    assert _efc_scratch_settled()
 
 
 @pytest.mark.cuda

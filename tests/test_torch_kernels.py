@@ -25,11 +25,12 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro.kernels.delta_merge import delta_merge_pallas  # noqa: E402
 from repro.kernels.segment_gather import (  # noqa: E402
     segment_gather_fixed_pallas, segment_gather_sum_pallas)
-from torch_cases import (DELTA_CASES, EFC_CASES, GATHER_FIXED_CASES,  # noqa: E402
-                         GATHER_SUM_CASES, bitmap_inputs, delta_inputs,
-                         edge_inputs, efc_inputs, gather_close,
-                         gather_fixed_inputs, gather_sum_inputs, same,
-                         sig_inputs, tile_inputs, tt)
+from torch_cases import (DELTA_CASES, EFC_CASES, EFC_EDGE_CASES,  # noqa: E402
+                         GATHER_FIXED_CASES, GATHER_SUM_CASES,
+                         SIG_EDGE_CASES, bitmap_inputs, delta_inputs,
+                         edge_inputs, efc_edge_inputs, efc_inputs,
+                         gather_close, gather_fixed_inputs, gather_sum_inputs,
+                         same, sig_inputs, tile_inputs, tt)
 
 
 # ---------------------------------------------- plain version vs reference
@@ -107,6 +108,51 @@ def test_expand_filter_compact(r, v, w, cap, with_mask, bound):
     for g_, w_ in zip(ops.expand_filter_compact(*map(tt, args), params[1],
                                                 cap), want):
         same(g_, w_)
+
+
+@pytest.mark.parametrize("n,w2", SIG_EDGE_CASES)
+def test_signature_filter_edge_cases(n, w2):
+    """1 to 9 ids (the kernel's scalar head and tail around its groups of
+    4), out-of-range ids, on an aligned v and on a ``v[1:]`` view."""
+    sig, ids, req = sig_inputs(50, w2, n + 1, n * 11 + w2)
+    tids = tt(ids)
+    for part, view in ((ids[:n], tids[:n]), (ids[1:], tids[1:])):
+        want = jref.signature_filter_ref(jnp.asarray(sig), jnp.asarray(part),
+                                         jnp.asarray(req))
+        pallas = signature_filter_pallas(jnp.asarray(sig), jnp.asarray(part),
+                                         jnp.asarray(req), interpret=True,
+                                         tile=4)
+        got = ops.signature_filter(tt(sig), view, tt(req))
+        same(got, want)
+        same(got, pallas)
+
+
+@pytest.mark.parametrize("kind,cap", EFC_EDGE_CASES)
+def test_expand_filter_compact_edge_cases(kind, cap):
+    """The shapes the one-launch kernel finds hard (every slot surviving at
+    capacity 2^22, none, survivors only in the last tile, total = capacity
+    +- 1, long zero-degree runs, a bound id matching one slot) against the
+    reference's plain version and, up to capacity 2^16, its TPU kernel in
+    interpret mode."""
+    args, bid = efc_edge_inputs(kind, cap)
+    jargs = [jnp.asarray(a) for a in args]
+    want = jref.expand_filter_compact_ref(*jargs, jnp.int32(bid), cap)
+    got = ops.expand_filter_compact(*map(tt, args), tt(np.int32(bid)), cap)
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
+    if cap <= 1 << 16:
+        pallas = expand_filter_compact_pallas(*jargs, jnp.int32(bid),
+                                              capacity=cap, interpret=True,
+                                              tile=512)
+        for g_, p_ in zip(got, pallas):
+            same(g_, p_)
+    count = int(got[2])
+    expect = {"all_survive": cap, "none_survive": 0, "last_tile_only": 3,
+              "bound_one": 1}
+    if kind in expect:
+        assert count == expect[kind]
+    else:
+        assert count > 0
 
 
 def test_expand_filter_compact_bound_filters_everything_else():

@@ -97,6 +97,94 @@ EFC_CASES = [
 ]
 
 
+# expand_filter_compact cases that stress the one-launch kernel's look-back,
+# its row windows and its -1 tail: (kind, capacity).  On the card a tile is
+# 128 slots below capacity 2^15, 256 below 2^16, 512 below 2^17 and 1024
+# from there on.
+EFC_EDGE_CASES = [
+    ("all_survive", 1 << 22),     # 4096 tiles, every slot survives, no tail
+    ("none_survive", 1 << 16),    # count 0: every slot -1
+    ("last_tile_only", 1 << 15),  # survivors only in the last tile
+    ("last_tile_only", 1 << 20),
+    ("total_minus_1", 1 << 16),
+    ("total_plus_1", 1 << 16),
+    ("total_minus_1", 5000),      # a partial last tile
+    ("total_plus_1", 5000),
+    ("zero_runs", 1 << 14),       # windows wider than the staged 2048 rows
+    ("zero_gaps", 1 << 14),       # zero-degree rows inside staged windows
+    ("bound_one", 1 << 16),       # the bound id matches exactly one slot
+]
+
+
+def efc_edge_inputs(kind, cap, seed=0):
+    """``((nbr, bitmap, start, deg, offs, mask), bound id)`` for one case of
+    ``EFC_EDGE_CASES``.  Rows are laid out back to back (``start == offs``),
+    so slot k < total reads ``nbr[k]``."""
+    rng = np.random.default_rng(seed)
+    n_v, w = 1000, 2
+    mask = np.array([0x5, 0x80000000], np.uint32)
+    bitmap = rng.integers(0, 2**32, size=(n_v, w),
+                          dtype=np.uint64).astype(np.uint32)
+    bid = -1
+    total = cap
+    if kind == "all_survive":
+        deg = np.full(cap // 4, 4, np.int32)
+        mask[:] = 0
+    elif kind in ("zero_runs", "zero_gaps"):
+        # a row has edges with probability 1/300 (runs of thousands of
+        # empty rows) or 1/8
+        p = 1 / 300 if kind == "zero_runs" else 1 / 8
+        n_rows = int(cap / 4.5 / p * 1.2)
+        deg = np.where(rng.random(n_rows) < p,
+                       rng.integers(1, 9, n_rows), 0).astype(np.int32)
+        deg[0] = 0
+        total = None
+    else:
+        total = {"total_minus_1": cap - 1, "total_plus_1": cap + 1}.get(
+            kind, cap + cap // 3)
+        deg = rng.integers(0, 9, size=total).astype(np.int32)
+        deg = deg[:int(np.searchsorted(np.cumsum(deg), total)) + 1]
+        deg[-1] -= int(deg.sum()) - total
+    m = int(deg.sum()) + 5
+    nbr = rng.integers(1, n_v, size=m).astype(np.int32)
+    if kind == "none_survive":
+        bitmap &= ~mask
+    elif kind == "last_tile_only":
+        bitmap[1:] &= ~mask
+        bitmap[0] |= mask
+        nbr[cap - 3:cap] = 0
+    elif kind == "bound_one":
+        n_v = m
+        nbr = rng.permutation(m).astype(np.int32)
+        bitmap = np.full((n_v, w), 0xFFFFFFFF, np.uint32)
+        bid = int(nbr[rng.integers(min(cap, m - 5))])
+    offs = (np.cumsum(deg) - deg).astype(np.int32)
+    assert total is None or int(deg.sum()) == total
+    return (nbr, bitmap, offs.copy(), deg, offs, mask), bid
+
+
+# input sets (r, v, w, bound) of the back-to-back and two-stream calls: a
+# large stream (about 800K slots), a small one with a bound id present, and
+# one row; and the capacities of 50 back-to-back calls
+EFC_STREAM_SETS = ((300_000, 5000, 2, -1), (500, 64, 1, None), (1, 4, 3, -1))
+EFC_BACK_TO_BACK_CAPS = np.random.default_rng(7).choice(
+    [1, 3, 64, 255, 256, 257, 1000, 5000, 1 << 14, 1 << 15, 40_000, 1 << 16,
+     1 << 18, 1 << 20, 1 << 22], size=50).tolist()
+
+
+def efc_tickets_settled(ops) -> bool:
+    """Between calls, each look-back buffer's ticket word (the last word:
+    24 bits of tickets under the call epoch) has handed out no ticket of a
+    new call, and its epoch counts the calls made on the buffer."""
+    return all(int(buf[-1]) == calls << 24
+               for buf, calls in ops._EFC_SCRATCH.values())
+
+
+# signature_filter edge cases: (n, w2) for n of 1 to 9 ids, each run on a
+# 16-byte-aligned v and on a v[1:] view
+SIG_EDGE_CASES = [(n, w2) for w2 in (2, 4, 10) for n in range(1, 10)]
+
+
 def delta_inputs(k, mb, md, mt, seed, labeled=False, run=4, vmax=60,
                  mode="mixed"):
     """Seeded ``delta_merge`` inputs: a sorted base array, a delta array, a
