@@ -17,7 +17,14 @@ Phases, each fatal on failure (no phase's error is caught):
    zero-degree runs, a bound id matching one slot, 50 back-to-back calls at
    mixed capacities and calls on two streams in flight together;
    ``signature_filter`` on 1 to 9 ids, aligned and as a ``v[1:]`` view, and
-   on its 4-byte row path; ``segment_gather`` fixed
+   on its 4-byte row path; ``bitmap_superset`` with row ids (the engine's
+   form) on 1 to 9 ids and 5000, aligned and as a view, at the main path's
+   size and on its 8- and 4-byte row paths, and in its contract form on
+   aligned and unaligned tables; ``delta_merge`` with row ids (the
+   engine's form) on ``DELTA_ROW_CASES`` (each optional field absent, no
+   valid slot, k % 4 != 0, runs longer than 256, a base array over 2^20
+   words) and at the main path's size, row and j aligned and not, beside
+   its contract form, each call one launch; ``segment_gather`` fixed
    and ragged, weighted and not, float32 and bfloat16, with negative and
    out-of-range ids and segments, within the tolerances it prints);
 4. parity scale: LUBM (scale 8, density 0.6) and BSBM (3000 products)
@@ -26,7 +33,9 @@ Phases, each fatal on failure (no phase's error is caught):
 5. full scale: LUBM at ``--scale`` universities (default 1000, about 7.4M
    triples), all 14 LUBM queries in bindings and in count mode, cold and
    warm latency, peak device memory; every count and every binding row is
-   held against the port's CPU run of the same query;
+   held against the port's CPU run of the same query; after the launch
+   window, one warm Q2 and Q9 each under ``torch.profiler``: the CUDA
+   kernels it launched and the device's busy share of its window;
 5b. live store at the same scale: the ``benchmarks/bench_update.py``
    stream (12.5% of the plain triples held back and inserted in 8 batches,
    a tenth as many deletes; the last batch as SPARQL UPDATE text) into a
@@ -35,7 +44,8 @@ Phases, each fatal on failure (no phase's error is caught):
    that snapshot (counts and rows), a from-scratch rebuild of the final
    triple set (counts) and the compacted store (counts and sorted rows);
    then a 64-lane batch of the F1 query family (below) on the final
-   snapshot, held against its members' own runs and the CPU run;
+   snapshot, held against its members' own runs and the CPU run; after the
+   window, warm Q2 and Q9 on the final snapshot profiled as in phase 5;
 5c. query families on the phase-5 graph: ``compile_param`` →
    ``execute_param_batch`` for F1 (``benchmarks/bench_serve.py``
    SAME_SHAPE_TMPL, constants a zipf(0.7) draw over the first 512
@@ -48,10 +58,14 @@ Phases, each fatal on failure (no phase's error is caught):
    batch run with a small capacity slack must rerun an overflowing lane
    alone;
 6. each engine kernel's wrapper on the largest inputs the main path gave
-   it (phases 4-5c), and ``expand_filter_compact`` and ``signature_filter``
-   also on the smallest, held bit-equal against its plain version and timed
-   beside it with CUDA events, with its byte bound (and, for
-   ``signature_filter``, the distinct 32-byte sectors its gathers touch);
+   it (phases 4-5c), and the kernels of ``SMALLEST`` also on the smallest,
+   held bit-equal against its plain version and timed beside it with CUDA
+   events, with its byte bound (and, for ``signature_filter`` and
+   ``bitmap_superset``'s ids form, the distinct 32-byte sectors its
+   gathers touch); ``bitmap_superset`` and ``delta_merge`` also in their
+   contract form on the same work gathered beforehand, and as the step
+   segment the engine ran before they took in their gathers (the gathers,
+   then the contract form);
    the ``expand_filter_compact`` calls of each path counted by power-of-two
    capacity; and ``segment_gather``
    at its users' shapes (DLRM RM-2's largest table looked up by a
@@ -72,8 +86,8 @@ after it; a kernel of a path launched no time in that path's window fails
 the run.  The last lines are the ``kernels`` JSON object (``launches`` is
 the sum of the windows, ``launches_by_path`` each window's count), then
 the device line.  Details go to ``chiprun_out/chip_smoke.json``.
-``--save-calls FILE`` also saves the recorded calls of the two redesigned
-kernels for ``tools/kernel_ab.py``, which times them against another
+``--save-calls FILE`` also saves the recorded calls of the kernels of
+``SMALLEST`` for ``tools/kernel_ab.py``, which times them against another
 tree's kernels.
 """
 
@@ -119,8 +133,17 @@ KERNEL_INFO = {
 # recorder keeps their largest calls for phase 6
 ENGINE_KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
                   "bitmap_superset", "signature_filter", "delta_merge")
-# the redesigned kernels, also timed at their smallest main-path call
-SMALLEST = ("expand_filter_compact", "signature_filter")
+# the redesigned kernels, also timed at their smallest main-path call (and
+# saved for tools/kernel_ab.py by --save-calls)
+SMALLEST = ("expand_filter_compact", "signature_filter", "bitmap_superset",
+            "delta_merge")
+# the kernels that take in the gathers the main path ran before them: with
+# ids= / row= each call is one launch where the parent tree made a torch
+# gather (bitmap_superset) or five gathers and a fill (delta_merge) first
+FUSED_GATHERS = {"bitmap_superset": "ids", "delta_merge": "row"}
+# the warm queries whose CUDA kernels phases 5 and 5b count with
+# torch.profiler
+PROFILED = ("Q2", "Q9")
 # the kernels each path must launch: the static path has no delta, and in
 # delta mode non-tree joins take edge_exists, never tile_membership; the
 # params path's non-tree joins are F4's and F5's, and its fused steps are
@@ -168,7 +191,7 @@ class Recorder:
         self.orig = {name: getattr(ops, name) for name in ENGINE_KERNELS}
 
     @staticmethod
-    def rows(name, args) -> tuple[int, ...]:
+    def rows(name, args, kw) -> tuple[int, ...]:
         """A call's size: its input rows (then, for the fused step, its
         capacity), read from shapes only so recording adds no sync."""
         if name == "expand_filter_compact":
@@ -177,6 +200,8 @@ class Recorder:
             return (int(args[1].shape[0]),)
         if name == "delta_merge":
             return (int(args[8].shape[0]),)  # slots
+        if kw.get("ids") is not None:  # bitmap_superset's ids form
+            return (int(kw["ids"].shape[0]),)
         return (int(args[0].shape[0]),)  # tile_membership, bitmap_superset
 
     def install(self, path: str) -> None:
@@ -184,7 +209,7 @@ class Recorder:
         for name, fn in self.orig.items():
             def wrapped(*args, _name=name, _fn=fn, **kw):
                 if args[0].is_cuda:
-                    r = self.rows(_name, args)
+                    r = self.rows(_name, args, kw)
                     best = self.calls.get(_name)
                     if best is None or r > best[0]:
                         self.calls[_name] = (r, args, kw)
@@ -260,7 +285,14 @@ def bound(torch, ref, name, args, kw) -> tuple[float, float, str]:
     def nb(t):
         return t.numel() * t.element_size()
 
-    if name == "bitmap_superset":
+    if name == "bitmap_superset" and kw.get("ids") is not None:
+        # the ids, each distinct row they touch, req, one byte out a probe
+        bm, req = args
+        ids = kw["ids"]
+        uniq = torch.unique(ids.clamp(0, bm.shape[0] - 1)).numel()
+        byts = nb(ids) + uniq * bm.shape[1] * 4 + nb(req) + ids.shape[0]
+        ops = 2 * ids.shape[0] * bm.shape[1]
+    elif name == "bitmap_superset":
         bm, req = args
         byts = nb(bm) + nb(req) + bm.shape[0]
         ops = 2 * bm.numel()
@@ -281,25 +313,46 @@ def bound(torch, ref, name, args, kw) -> tuple[float, float, str]:
         byts = nb(lo) + nb(hi) + nb(tgt) + 4 * words + lo.shape[0]
         ops = 3 * words
     elif name == "delta_merge":
-        # every slot: the valid byte in, v and ok out.  A valid base slot
-        # also reads j, b_deg, b_start, t_lo, t_hi and about log2(run)
-        # tombstone words; a valid delta slot reads j, b_deg, d_start; and
-        # each distinct base / delta word a valid slot resolves to is read
+        # every slot: the valid byte in, v and ok out.  A valid slot also
+        # reads j (and, in the row form, its row id) and b_deg; a base slot
+        # b_start, t_lo, t_hi and about log2(run) tombstone words; a delta
+        # slot d_start; and each distinct base / delta word a valid slot
+        # resolves to.  Per-slot fields count once a slot that needs them;
+        # row-level fields (row=) once a distinct row that needs them.
         base, delta, tomb, b_start, b_deg, d_start, t_lo, t_hi, j, valid = \
             args
+        row = kw.get("row")
         k = j.shape[0]
-        is_base = (j < b_deg) & valid
-        is_delta = (j >= b_deg) & valid
-        n_base, n_delta = int(is_base.sum()), int(is_delta.sum())
-        pb = (b_start + j)[is_base].clamp(0, base.shape[0] - 1)
-        pd = (d_start + j - b_deg)[is_delta].clamp(0, delta.shape[0] - 1)
-        run = (t_hi - t_lo)[is_base].clamp(min=0).double()
-        words = min(torch.ceil(torch.log2(run + 1)).sum().item(),
-                    float(tomb.numel()))
-        byts = (1 + 4 + 1) * k + 5 * 4 * n_base + 3 * 4 * n_delta \
+        r = None if row is None else \
+            row.long().clamp(0, b_start.shape[0] - 1)
+        zero = torch.zeros_like(j)
+
+        def at(f):
+            return zero if f is None else (f if r is None else f[r])
+
+        def words(f, mask) -> int:
+            if f is None:
+                return 0
+            return int(mask.sum()) if r is None else \
+                torch.unique(r[mask]).numel()
+
+        bs, bd, ds, tl, th = map(at, (b_start, b_deg, d_start, t_lo, t_hi))
+        is_base = (j < bd) & valid
+        is_delta = (j >= bd) & valid
+        n_valid = int(valid.sum())
+        pb = (bs + j)[is_base].clamp(0, base.shape[0] - 1)
+        pd = (ds + j - bd)[is_delta].clamp(0, delta.shape[0] - 1)
+        run = (th - tl)[is_base].clamp(min=0).double()
+        tomb_words = min(torch.ceil(torch.log2(run + 1)).sum().item(),
+                         float(tomb.numel()))
+        field_words = (words(b_deg, valid) + words(b_start, is_base)
+                       + words(t_lo, is_base) + words(t_hi, is_base)
+                       + words(d_start, is_delta))
+        byts = (1 + 4 + 1) * k + 4 * n_valid * (1 if row is None else 2) \
+            + 4 * field_words \
             + 4 * (torch.unique(pb).numel() + torch.unique(pd).numel()) \
-            + 4 * words
-        ops = 2 * (n_base + n_delta) + 3 * words
+            + 4 * tomb_words
+        ops = 2 * n_valid + 3 * tomb_words
     else:  # expand_filter_compact
         nbr, bitmap, start, deg, offs, mask = args[:6]
         cap = int(args[7])
@@ -331,6 +384,87 @@ def max_abs_err(torch, got, want) -> float:
             d = (g_.long() - w_.long()).abs()
         err = max(err, float(d.max().item()) if d.numel() else 0.0)
     return err
+
+
+def contract_call(torch, name, args, kw):
+    """The TPU-contract form of a recorded call that used ``ids=`` or
+    ``row=``: ``(args, kw)`` with the rows or the per-slot fields gathered
+    beforehand (absent fields as zeros, as the main path filled them
+    before), so the kernel is timed on the same work without the gathers."""
+    if name == "bitmap_superset" and kw.get("ids") is not None:
+        table, req = args
+        ids = kw["ids"].long().clamp(0, table.shape[0] - 1)
+        return (table[ids], req), {}
+    if name == "delta_merge" and kw.get("row") is not None:
+        row = kw["row"].long().clamp(0, args[3].shape[0] - 1)
+        zero = torch.zeros_like(kw["row"])
+        fields = [zero if f is None else f[row] for f in args[3:8]]
+        return (*args[:3], *fields, *args[8:]), {"n_iters": kw["n_iters"]}
+    return args, kw
+
+
+def unfused_segment(torch, kern, name, args, kw):
+    """The step segment as the engine ran it before ``ids=`` / ``row=``:
+    the gathers it made before the call (the label filter's
+    ``bitmap_src[vsafe]``; the merged step's ``zeros_like`` fill and its
+    five field gathers), then the contract-form kernel ``kern``.  Runs
+    against any tree's kernels, the parent's included."""
+    if name == "bitmap_superset":
+        table, req = args
+        ids = kw["ids"]
+
+        def segment():
+            return kern(table[ids], req)
+    else:
+        row = kw["row"]
+        base, delta, tomb, bs, bd, ds, tl, th, j, valid = args
+
+        def segment():
+            zero = torch.zeros_like(row)
+            return kern(base, delta, tomb, bs[row], bd[row],
+                        ds[row] if ds is not None else zero,
+                        tl[row] if tl is not None else zero,
+                        th[row] if th is not None else zero, j, valid,
+                        n_iters=kw["n_iters"])
+    return segment
+
+
+def profile_query(torch, fn) -> dict:
+    """One run of ``fn`` (a warm query) under ``torch.profiler``: the CUDA
+    kernels it launched, its device copies and fills, and the share of its
+    window (host clock from the call to a device sync) in which the device
+    was busy (the union of those intervals).  ``None`` counts where the
+    profiler saw no device activity (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {"cuda_kernels": None, "copies_fills": None,
+                "device_busy_share": None, "window_us": window_us}
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    names: dict[str, int] = {}
+    for e in dev:
+        if not e.name.startswith(("Memcpy", "Memset")):
+            names[e.name] = names.get(e.name, 0) + 1
+    return {"cuda_kernels": len(dev) - len(copies),
+            "copies_fills": len(copies), "device_busy_us": busy,
+            "window_us": window_us, "device_busy_share": busy / window_us,
+            "kernels_by_name": dict(sorted(names.items(),
+                                           key=lambda kv: -kv[1]))}
 
 
 def gather_tol(dtype: str, hot: int) -> float:
@@ -465,6 +599,7 @@ def synthetic_checks(torch, ops, ref) -> None:
         check(err == 0, f"{label}: kernel differs from its plain version")
     log(f"phase 3: {len(cases)} kernel checks bit-equal to the plain versions")
     edge_checks(torch, ops, ref)
+    fused_checks(torch, ops, ref)
     gather_checks(torch, ops, ref, rng)
 
 
@@ -548,6 +683,107 @@ def edge_checks(torch, ops, ref) -> None:
     log(f"phase 3: {n} look-back and alignment edge checks of "
         f"expand_filter_compact and signature_filter bit-equal to the plain "
         f"versions; ticket words settled")
+
+
+def fused_checks(torch, ops, ref) -> None:
+    """Phase 3, the forms that take in the main path's gathers, from
+    ``tests/torch_cases.py``, each call one launch and bit-equal to its
+    plain version: ``bitmap_superset`` with ``ids`` on ``BITMAP_EDGE_CASES``
+    (aligned and as an ``ids[1:]`` view) and at the main path's size, on
+    8-byte and 4-byte row paths; its contract form on aligned tables (4
+    rows a thread as 16-byte loads) and on views that are not; and
+    ``delta_merge`` with ``row`` on ``DELTA_ROW_CASES`` and at the main
+    path's size, row and j aligned and not, beside its contract form on the
+    per-slot arrays."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (BITMAP_EDGE_CASES, DELTA_FIELDS,
+                             DELTA_ROW_CASES, bitmap_ids_inputs,
+                             bitmap_inputs, delta_row_inputs, tt)
+
+    dev = "cuda"
+    n = 0
+
+    def at(a, offset=0):
+        """``a`` on the card, ``offset`` int32 words into its buffer."""
+        flat = torch.empty(a.size + offset, dtype=torch.int32, device=dev)
+        flat[offset:] = tt(a, dev).reshape(-1)
+        return flat[offset:].view(a.shape)
+
+    def one_launch(name, kern, plain, what):
+        nonlocal n
+        before = ops.launches[name]
+        got = kern()
+        torch.cuda.synchronize()
+        check(ops.launches[name] == before + 1, f"{what}: not one launch")
+        check(max_abs_err(torch, got, plain()) == 0,
+              f"{what}: kernel differs from its plain version")
+        n += 1
+
+    for n_ids, w in BITMAP_EDGE_CASES:
+        bm, req, ids = bitmap_ids_inputs(50, w, n_ids + 1, n_ids * 13 + w)
+        tbm, treq, tids = tt(bm, dev), tt(req, dev), tt(ids, dev)
+        for view in (tids[:n_ids], tids[1:]):
+            one_launch("bitmap_superset",
+                       lambda: ops.bitmap_superset(tbm, treq, ids=view),
+                       lambda: ref.bitmap_superset_ref(tbm, treq, ids=view),
+                       f"bitmap_superset ids n={n_ids} w={w} "
+                       f"at {view.data_ptr() % 16}")
+    for v, w, n_ids, offset in ((2_641_315, 1, 1 << 20, 0),
+                                (200_000, 2, 100_003, 0),
+                                (200_000, 2, 100_003, 1),
+                                (200_000, 3, 100_003, 0),
+                                (50_000, 5, 100_003, 2)):
+        bm, req, ids = bitmap_ids_inputs(v, w, n_ids, v + n_ids)
+        tbm, treq, tids = at(bm, offset), tt(req, dev), tt(ids, dev)
+        one_launch("bitmap_superset",
+                   lambda: ops.bitmap_superset(tbm, treq, ids=tids),
+                   lambda: ref.bitmap_superset_ref(tbm, treq, ids=tids),
+                   f"bitmap_superset ids V={v} w={w} n={n_ids} "
+                   f"offset={offset}")
+    for b, w, offset in ((1, 1, 0), (7, 1, 0), (1 << 20, 1, 0),
+                         (100_003, 2, 0), (100_003, 3, 0), (100_003, 4, 0),
+                         (100_001, 9, 0), (100_003, 1, 1), (100_003, 2, 2),
+                         (100_003, 4, 3)):
+        bm, req = bitmap_inputs(b, w, b + w)
+        tbm, treq = at(bm, offset), tt(req, dev)
+        one_launch("bitmap_superset",
+                   lambda: ops.bitmap_superset(tbm, treq),
+                   lambda: ref.bitmap_superset_ref(tbm, treq),
+                   f"bitmap_superset contract B={b} w={w} offset={offset}")
+    for case in DELTA_ROW_CASES + [
+            (1 << 20, 1 << 16, 5_185_880, 65_536, 16_384, 40, (), False),
+            (1 << 20, 1 << 16, 5_185_880, 65_536, 0, 4, ("t_lo", "t_hi"),
+             False)]:
+        k, r, mb, md, mt, run, absent, none_valid = case
+        arrays, fields, row, j, valid, n_iters = delta_row_inputs(
+            k, r, mb, md, mt, run, seed=k + r + mb, none_valid=none_valid)
+        arrs = [tt(a, dev) for a in arrays]
+        padded = [a if a.shape[0] else torch.full(
+            (1,), -1, dtype=torch.int32, device=dev) for a in arrs]
+        given = [None if name in absent else tt(f, dev)
+                 for name, f in zip(DELTA_FIELDS, fields)]
+        rc = np.clip(row, 0, r - 1)
+        per_slot = [tt(np.zeros(k, np.int32) if name in absent else f[rc],
+                       dev) for name, f in zip(DELTA_FIELDS, fields)]
+        tvalid = tt(valid, dev)
+        for offset in (0, 1):
+            trow, tj = at(row, offset), at(j, offset)
+            one_launch("delta_merge",
+                       lambda: ops.delta_merge(*arrs, *given, tj, tvalid,
+                                               n_iters=n_iters, row=trow),
+                       lambda: ref.delta_merge_ref(*padded, *given, tj,
+                                                   tvalid, n_iters=n_iters,
+                                                   row=trow),
+                       f"delta_merge row form {case} offset={offset}")
+            one_launch("delta_merge",
+                       lambda: ops.delta_merge(*arrs, *per_slot, tj, tvalid,
+                                               n_iters=n_iters),
+                       lambda: ref.delta_merge_ref(*padded, *per_slot, tj,
+                                                   tvalid, n_iters=n_iters),
+                       f"delta_merge contract form {case} offset={offset}")
+    log(f"phase 3: {n} checks of the ids / row forms and the contract forms "
+        f"of bitmap_superset and delta_merge bit-equal to the plain "
+        f"versions, one launch each")
 
 
 def gather_checks(torch, ops, ref, rng) -> None:
@@ -1023,23 +1259,13 @@ def _new_programs(before: set, after: set, resumed: bool, what: str) -> list:
     return sorted(why)
 
 
-def run_live(torch, ops, st, scale: int) -> dict:
-    """Phase 5b: the live store at full scale.  The stream follows
-    ``benchmarks/bench_update.py:_dataset`` (seed 5) at the id level: the
-    base keeps every rdf:type / rdf:subClassOf triple and 87.5% of the
-    others; the other 12.5% arrive as inserts in 8 batches with a tenth as
-    many deletes of base triples, so the final delta sits near half the
-    store's auto-compaction threshold (25% of base edges).  Returns the
-    phase's record and ``finish``, which holds the final snapshot against
-    the CPU run, the rebuild and the compacted store (outside the live
-    path's launch window)."""
-    from repro_torch.core import SparqlEngine
+def live_split(st):
+    """``benchmarks/bench_update.py:_dataset``'s split of a triple store
+    (seed 5), as row numbers: the base keeps every rdf:type /
+    rdf:subClassOf triple and 87.5% of the others; the other 12.5% are the
+    inserts, and a tenth as many base triples the deletes."""
     from repro_torch.rdf.dictionary import RDF_TYPE, RDFS_SUBCLASSOF
-    from repro_torch.rdf.transform import type_aware_transform
-    from repro_torch.rdf.workloads import LUBM_QUERIES
-    from repro_torch.store import VersionedStore, parse_update
 
-    t0 = time.perf_counter()
     d = st.dict
     onto = np.isin(st.p, [d.predicate_id(RDF_TYPE),
                           d.predicate_id(RDFS_SUBCLASSOF)])
@@ -1051,6 +1277,26 @@ def run_live(torch, ops, st, scale: int) -> dict:
     ins_rows = plain[idx[n_base:]]
     del_rows = plain[idx[rng.choice(n_base, size=max(1, len(ins_rows) // 10),
                                     replace=False)]]
+    return base_rows, ins_rows, del_rows
+
+
+def run_live(torch, ops, st, scale: int) -> dict:
+    """Phase 5b: the live store at full scale.  The stream follows
+    ``benchmarks/bench_update.py:_dataset`` (seed 5) at the id level: the
+    base keeps every rdf:type / rdf:subClassOf triple and 87.5% of the
+    others; the other 12.5% arrive as inserts in 8 batches with a tenth as
+    many deletes of base triples, so the final delta sits near half the
+    store's auto-compaction threshold (25% of base edges).  Returns the
+    phase's record and ``finish``, which holds the final snapshot against
+    the CPU run, the rebuild and the compacted store (outside the live
+    path's launch window)."""
+    from repro_torch.core import SparqlEngine
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+    from repro_torch.store import VersionedStore, parse_update
+
+    t0 = time.perf_counter()
+    base_rows, ins_rows, del_rows = live_split(st)
     ins, dels = _decode(st, ins_rows), _decode(st, del_rows)
     g, maps = type_aware_transform(_sub_store(st, base_rows))
     info = {"scale": scale, "base_triples": int(base_rows.shape[0]),
@@ -1191,6 +1437,7 @@ def run_live(torch, ops, st, scale: int) -> dict:
     info["stream_s"] = time.perf_counter() - t0
 
     def finish() -> None:
+        info["profiles"] = profile_queries(torch, eng)
         # held against the CPU run of the same snapshot: counts and rows
         t1 = time.perf_counter()
         cpu = SparqlEngine(snap, maps, device="cpu")
@@ -1239,6 +1486,27 @@ def run_live(torch, ops, st, scale: int) -> dict:
     return info, finish
 
 
+def profile_queries(torch, eng) -> dict:
+    """Phases 5 and 5b, outside the launch windows: the CUDA kernels one
+    warm run of each of ``PROFILED`` launches on ``eng``, and the device's
+    busy share of its window (``profile_query``; a first profiled run
+    warms the profiler up and is dropped)."""
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+
+    out = {}
+    for name in PROFILED:
+        q = LUBM_QUERIES[name]
+        profile_query(torch, lambda: eng.query(q))
+        out[name] = profile_query(torch, lambda: eng.query(q))
+        p = out[name]
+        log(f"  {name} warm: {p['cuda_kernels']} CUDA kernels, "
+            f"{p['copies_fills']} copies / fills, device busy "
+            + ("not measured" if p["device_busy_share"] is None else
+               f"{p['device_busy_share']:.3f}")
+            + f" of {p['window_us']:.0f} us")
+    return out
+
+
 def kernel_table(torch, ops, ref, rec: Recorder,
                  by_path: dict[str, dict]) -> list:
     """Phase 6: each kernel at the main path's largest shapes.
@@ -1268,19 +1536,39 @@ def kernel_table(torch, ops, ref, rec: Recorder,
                "bound_by": by, "bytes": byts, "ops": nops,
                "shapes": [list(a.shape) for a in args
                           if isinstance(a, torch.Tensor)]}
-        if name == "signature_filter":
+        gathered = {"signature_filter": lambda: (args[0], args[1], args[2]),
+                    "bitmap_superset": lambda: (args[0], kw.get("ids"),
+                                                args[1])}.get(name)
+        if gathered is not None and gathered()[1] is not None:
             # the card moves 32-byte sectors: the rows' distinct sectors, and
             # the time they take at the peak rate beside the ids and the out
-            sig, v, req = args
-            sectors = sig_sectors(torch, sig, v)
+            table, v, req = gathered()
+            sectors = row_sectors(torch, table, v)
             out["sectors"] = sectors
             out["sector_ms"] = (32 * sectors + 4 * v.shape[0] + v.shape[0]
                                 + 4 * req.shape[0]) / PEAK_BYTES_S * 1e3
+        if kw.get(FUSED_GATHERS.get(name)) is not None:
+            # the same work in the TPU contract's form (inputs gathered
+            # beforehand), and the segment as the engine ran it before:
+            # the gathers, then the contract-form kernel
+            cargs, ckw = contract_call(torch, name, args, kw)
+            check(max_abs_err(torch, kern(*cargs, **ckw), got) == 0,
+                  f"{name}: the contract form differs from the fused form "
+                  f"at {rows}")
+            c_byts, c_ops, _ = bound(torch, ref, name, cargs, ckw)
+            out["contract_ms"] = time_ms(torch, lambda: kern(*cargs, **ckw))
+            out["contract_bound_ms"] = max(c_byts / PEAK_BYTES_S,
+                                           c_ops / PEAK_OPS_S) * 1e3
+            out["unfused_ms"] = time_ms(
+                torch, unfused_segment(torch, kern, name, args, kw))
         log(f"phase 6: {name}: rows {rows} kernel {out['ms']:.4f} ms (host "
             f"{out['host_ms']:.4f} ms per call) plain "
             f"{out['plain_ms']:.4f} ms bound {out['bound_ms']:.4f} ms"
             + (f" ({out['sectors']} sectors: {out['sector_ms']:.4f} ms)"
-               if "sectors" in out else ""))
+               if "sectors" in out else "")
+            + (f"; contract form {out['contract_ms']:.4f} ms (bound "
+               f"{out['contract_bound_ms']:.4f}), gathers + contract form "
+               f"{out['unfused_ms']:.4f} ms" if "contract_ms" in out else ""))
         return out
 
     table = []
@@ -1312,13 +1600,13 @@ def launch_floor_ms(torch) -> float:
     return time_ms(torch, lambda: one.fill_(1))
 
 
-def sig_sectors(torch, sig, v) -> int:
-    """The distinct 32-byte sectors of ``sig`` that gathering the rows
+def row_sectors(torch, table, v) -> int:
+    """The distinct 32-byte sectors of ``table`` that gathering the rows
     ``clamp(v)`` touches."""
-    w2 = sig.shape[1]
-    rows = v.clamp(0, sig.shape[0] - 1).long()
-    byte = (sig.data_ptr() % 32 + rows[:, None] * (4 * w2)
-            + 4 * torch.arange(w2, device=v.device))
+    w = table.shape[1]
+    rows = v.clamp(0, table.shape[0] - 1).long()
+    byte = (table.data_ptr() % 32 + rows[:, None] * (4 * w)
+            + 4 * torch.arange(w, device=v.device))
     return torch.unique(byte // 32).numel()
 
 
@@ -1473,8 +1761,8 @@ def main(argv=None) -> int:
                     help="LUBM universities at full scale (default 1000)")
     ap.add_argument("--save-calls", type=Path, default=None,
                     help="also save the largest and smallest recorded calls "
-                         "of expand_filter_compact and signature_filter "
-                         "(torch.save) for tools/kernel_ab.py")
+                         "(arguments and keywords) of the kernels in "
+                         "SMALLEST (torch.save) for tools/kernel_ab.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -1529,6 +1817,7 @@ def main(argv=None) -> int:
 
     parity, (full, st, static) = window("static", lambda: (
         run_parity(torch, bench), run_full(torch, ops, args.scale)))
+    full["profiles"] = profile_queries(torch, static[2])
     params, finish = window("params", lambda: run_params(torch, ops,
                                                          *static))
     finish()
@@ -1545,8 +1834,8 @@ def main(argv=None) -> int:
     del inputs, outs
     if args.save_calls is not None:
         args.save_calls.parent.mkdir(parents=True, exist_ok=True)
-        torch.save({name: {"largest": rec.calls[name][1],
-                           "smallest": rec.smallest[name][1]}
+        torch.save({name: {"largest": rec.calls[name][1:],
+                           "smallest": rec.smallest[name][1:]}
                     for name in SMALLEST}, args.save_calls)
     hist = {p: {str(c): n for c, n in sorted(h.items())}
             for p, h in rec.cap_hist.items()}

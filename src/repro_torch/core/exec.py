@@ -552,17 +552,19 @@ def _unfused_ok(dg: DeviceGraph, plan: ExecPlan, step: Step, sarr,
     if src.merged:
         # live store: position j < deg_b reads the base CSR (minus
         # tombstones), later positions read the delta
-        zero = torch.zeros_like(row)
-        sd = src.start_d[row] if src.start_d is not None else zero
-        tl = src.t_lo[row] if src.t_lo is not None else zero
-        th = src.t_hi[row] if src.t_hi is not None else zero
         d_nbr = sarr.get("d_nbr")
         if step.elabel >= 0:
+            # the row-level fields as they are: the kernel reads each slot's
+            # row itself
             v_new, ok = kops.delta_merge(
-                nbr_src, d_nbr, sarr.get("t_nbr"), src.start[row],
-                src.deg_b[row], sd, tl, th, j, valid,
-                n_iters=dg.max_log_deg)
+                nbr_src, d_nbr, sarr.get("t_nbr"), src.start, src.deg_b,
+                src.start_d, src.t_lo, src.t_hi, j, valid,
+                n_iters=dg.max_log_deg, row=row)
         else:
+            zero = torch.zeros_like(row)
+            sd = src.start_d[row] if src.start_d is not None else zero
+            tl = src.t_lo[row] if src.t_lo is not None else zero
+            th = src.t_hi[row] if src.t_hi is not None else zero
             lab_src = arrays["out_lab_all" if step.forward else "in_lab_all"]
             v_new, el_new, ok = kops.delta_merge_labeled(
                 nbr_src, lab_src, d_nbr, sarr.get("d_lab"),
@@ -592,8 +594,10 @@ def _unfused_ok(dg: DeviceGraph, plan: ExecPlan, step: Step, sarr,
         ok = ok & (v_new == step.bound_id)
     vsafe = v_new.clamp(0, n - 1)
     bitmap_src = sarr.get("bitmap") if dmode else arrays["label_bitmap"]
+    # the filters gather their rows at vsafe in the kernel: no gathered copy
     if "label_mask" in sarr:
-        ok = ok & kops.bitmap_superset(bitmap_src[vsafe], sarr["label_mask"])
+        ok = ok & kops.bitmap_superset(bitmap_src, sarr["label_mask"],
+                                       ids=vsafe)
     pre_sig = post_sig = None
     sig_mask = sarr.get("sig_mask")
     sig_src = (sarr.get("sig") if dmode else arrays.get("sig")) \
@@ -608,10 +612,10 @@ def _unfused_ok(dg: DeviceGraph, plan: ExecPlan, step: Step, sarr,
         ok = ok & (arrays["out_degree"][vsafe] >= step.min_out_ntypes)
         ok = ok & (arrays["in_degree"][vsafe] >= step.min_in_ntypes)
     if "nlf_out_mask" in sarr and "nlf_out" in arrays and not dmode:
-        ok = ok & kops.bitmap_superset(arrays["nlf_out"][vsafe],
-                                       sarr["nlf_out_mask"])
-        ok = ok & kops.bitmap_superset(arrays["nlf_in"][vsafe],
-                                       sarr["nlf_in_mask"])
+        ok = ok & kops.bitmap_superset(arrays["nlf_out"],
+                                       sarr["nlf_out_mask"], ids=vsafe)
+        ok = ok & kops.bitmap_superset(arrays["nlf_in"],
+                                       sarr["nlf_in_mask"], ids=vsafe)
     num_src = sarr.get("numeric") if dmode else arrays.get("numeric_value")
     if step.num_filters and num_src is not None:
         vals = num_src[vsafe]

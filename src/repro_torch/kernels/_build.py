@@ -5,7 +5,7 @@ Each ``csrc/*.cu`` source compiles on its own, with ``nvcc`` for
 ``ctypes``.  All sources build in parallel (one ``nvcc`` each) at the first
 kernel call, into ``build/repro_torch_kernels/`` of the checkout (next to
 the package for an installed copy).  A library's file name carries a hash
-of its source, the shared header and the flags, so an edited source is
+of its source, the shared headers and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  There is no fallback: a missing
 ``nvcc`` or a failed build raises.
 """
@@ -37,11 +37,13 @@ SIGNATURES: dict[str, tuple[str, list]] = {
                       [P, I, P, I, I, P, P, P, I, P, P, I, P, P, P, P, I, P]),
     "edge_exists": ("repro_edge_exists", [P, P, P, P, P, I, I, I, P]),
     "tile_membership": ("repro_tile_membership", [P, P, P, I, I, I, P]),
-    "bitmap_superset": ("repro_bitmap_superset", [P, P, P, I, I, P]),
+    "bitmap_superset": ("repro_bitmap_superset",
+                        [P, P, P, P, I, I, I, I, P]),
     "signature_filter": ("repro_signature_filter",
                          [P, P, P, P, I, I, I, I, P]),
     "delta_merge": ("repro_delta_merge",
-                    [P, I, P, I, P, I, P, P, P, P, P, P, P, P, P, I, I, P]),
+                    [P, I, P, I, P, I, P, P, P, P, P, P, I, P, P, P, P, I, I,
+                     P]),
     "segment_gather": ("repro_segment_gather",
                        [P, I, I, I, P, P, P, I, I, P, P]),
 }
@@ -60,8 +62,9 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
+    headers = sorted(CSRC.glob("*.cuh"))
     for part in ((CSRC / f"{name}.cu").read_bytes(),
-                 (CSRC / "common.cuh").read_bytes(),
+                 *(p.read_bytes() for p in headers),
                  " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -76,6 +76,7 @@ def _launch(name: str, lib: str, *args) -> None:
     as C ints; a refused launch raises."""
     from repro_torch.kernels._build import kernel
 
+    # (None passes as a null pointer: an absent optional array)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = kernel(lib)(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -115,17 +116,38 @@ def tile_membership(a, b):
     return out
 
 
-def bitmap_superset(bitmap, required):
-    """Row-wise ``(bitmap & required) == required``, bool [B]."""
-    if not _on_cuda(bitmap, required):
-        return _ref.bitmap_superset_ref(bitmap, required)
-    n, w = bitmap.shape
-    _check("bitmap_superset", bitmap, required, words=(required, w))
-    out = torch.empty(n, dtype=torch.bool, device=bitmap.device)
+def _probe(name: str, table, ids, required):
+    """One launch of the superset probe that ``bitmap_superset`` and
+    ``signature_filter`` share: rows ``table[clamp(ids)]``, or every row of
+    ``table`` when ``ids`` is None."""
+    _check(name, table, required, *(() if ids is None else (ids,)),
+           words=(required, table.shape[1]))
+    n = table.shape[0] if ids is None else ids.shape[0]
+    # the kernel stores 4 results as one 32-bit word from the ids' first
+    # 16-byte boundary (``head`` ids in): place out so that word is aligned
+    head = 0 if ids is None else -ids.data_ptr() % 16 // 4
+    if head == 0:
+        out = torch.empty(n, dtype=torch.bool, device=table.device)
+    else:
+        out = torch.empty(n + 3, dtype=torch.bool,
+                          device=table.device)[-head % 4:][:n]
     if n:
-        _launch("bitmap_superset", "bitmap_superset", bitmap, required,
-                out, n, w)
+        # rows as 8-byte words where the table is 8-byte aligned and rows
+        # even
+        wide = int(table.data_ptr() % 8 == 0 and table.shape[1] % 2 == 0)
+        _launch(name, name, table, ids, required, out, n, table.shape[0],
+                table.shape[1], wide)
     return out
+
+
+def bitmap_superset(bitmap, required, ids=None):
+    """Row-wise ``(bitmap & required) == required``, bool [B].  With int32
+    ``ids`` the rows ``bitmap[clamp(ids, 0, V-1)]`` are tested in the same
+    launch (no gathered copy), bool [len(ids)]."""
+    ts = (bitmap, required) if ids is None else (bitmap, required, ids)
+    if not _on_cuda(*ts):
+        return _ref.bitmap_superset_ref(bitmap, required, ids=ids)
+    return _probe("bitmap_superset", bitmap, ids, required)
 
 
 def signature_filter(sig, v, required):
@@ -133,23 +155,7 @@ def signature_filter(sig, v, required):
     superset-test them against ``required``, bool [B]."""
     if not _on_cuda(sig, v, required):
         return _ref.signature_filter_ref(sig, v, required)
-    _check("signature_filter", sig, v, required,
-           words=(required, sig.shape[1]))
-    n = v.shape[0]
-    # the kernel stores 4 results as one 32-bit word from v's first 16-byte
-    # boundary (``head`` ids in): place out so that word is aligned
-    head = -v.data_ptr() % 16 // 4
-    if head == 0:
-        out = torch.empty(n, dtype=torch.bool, device=v.device)
-    else:
-        out = torch.empty(n + 3, dtype=torch.bool,
-                          device=v.device)[-head % 4:][:n]
-    if n:
-        # rows as 8-byte words where sig is 8-byte aligned and rows even
-        wide = int(sig.data_ptr() % 8 == 0 and sig.shape[1] % 2 == 0)
-        _launch("signature_filter", "signature_filter", sig, v, required,
-                out, n, sig.shape[0], sig.shape[1], wide)
-    return out
+    return _probe("signature_filter", sig, v, required)
 
 
 def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
@@ -244,33 +250,45 @@ def _one_slot(a: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
 
 
 def delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
-                t_lo, t_hi, j, valid, n_iters: int = 32):
+                t_lo, t_hi, j, valid, n_iters: int = 32, row=None):
     """Live-store slot resolution with tombstone masking: slot position
     ``j < b_deg`` reads ``base_nbr[b_start + j]``, later positions
     ``delta_nbr[d_start + j - b_deg]``; a base candidate found in
     ``tomb_nbr[t_lo:t_hi)`` is masked.  Returns ``(v, ok)``: int32 ``v``
     (-1 where not ``valid``) and bool ``ok``.  An adjacency array may be
-    ``None`` (the direction has no delta or no tombstones) or empty.  See
-    :func:`repro_torch.kernels.ref.delta_merge_ref`."""
-    base_nbr, delta_nbr, tomb_nbr = (_one_slot(a, b_start) for a in
+    ``None`` (the direction has no delta or no tombstones) or empty.
+
+    The five fields are per slot, or, with int32 ``row``, row-level: slot
+    ``i`` reads ``field[clamp(row[i])]`` in the same launch (no per-slot
+    copies).  ``d_start``, ``t_lo`` and ``t_hi`` may be ``None`` and then
+    read as 0.  See :func:`repro_torch.kernels.ref.delta_merge_ref`."""
+    base_nbr, delta_nbr, tomb_nbr = (_one_slot(a, j) for a in
                                      (base_nbr, delta_nbr, tomb_nbr))
-    slots = (b_start, b_deg, d_start, t_lo, t_hi, j)
-    if not _on_cuda(base_nbr, delta_nbr, tomb_nbr, *slots, valid):
-        return _ref.delta_merge_ref(base_nbr, delta_nbr, tomb_nbr, b_start,
-                                    b_deg, d_start, t_lo, t_hi, j, valid,
-                                    n_iters=n_iters)
-    _check("delta_merge", base_nbr, delta_nbr, tomb_nbr, *slots,
-           same_len=(*slots, valid))
+    fields = (b_start, b_deg, d_start, t_lo, t_hi)
+    given = [f for f in fields if f is not None]
+    per_slot = (j,) + (tuple(given) if row is None else (row,))
+    if not _on_cuda(base_nbr, delta_nbr, tomb_nbr, *given, *per_slot,
+                    valid):
+        return _ref.delta_merge_ref(base_nbr, delta_nbr, tomb_nbr, *fields,
+                                    j, valid, n_iters=n_iters, row=row)
+    if b_start is None or b_deg is None:
+        raise ValueError("delta_merge: b_start and b_deg are required")
+    _check("delta_merge", base_nbr, delta_nbr, tomb_nbr, *given, *per_slot,
+           same_len=(*per_slot, valid))
+    _check("delta_merge", same_len=given)
     if valid.dtype != torch.bool or not valid.is_contiguous():
         raise ValueError(f"delta_merge: expected a contiguous bool valid "
                          f"mask, got {valid.dtype}")
     k = j.shape[0]
+    n_fields = b_start.shape[0]
+    if row is not None and k and not n_fields:
+        raise ValueError("delta_merge: row ids into empty field arrays")
     v = torch.empty(k, dtype=torch.int32, device=j.device)
     ok = torch.empty(k, dtype=torch.bool, device=j.device)
     if k:
         _launch("delta_merge", "delta_merge", base_nbr, base_nbr.shape[0],
                 delta_nbr, delta_nbr.shape[0], tomb_nbr, tomb_nbr.shape[0],
-                *slots, valid, v, ok, k, n_iters)
+                *fields, row, n_fields, j, valid, v, ok, k, n_iters)
     return v, ok
 
 

@@ -39,19 +39,20 @@ def tile_membership_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.any(eq & (a[:, :, None] >= 0), dim=-1)
 
 
-def bitmap_superset_ref(bitmap: torch.Tensor,
-                        required: torch.Tensor) -> torch.Tensor:
-    """Row-wise ``(bitmap & required) == required`` over all words, bool [B]."""
+def bitmap_superset_ref(bitmap: torch.Tensor, required: torch.Tensor,
+                        ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Row-wise ``(bitmap & required) == required`` over all words, bool
+    [B]; with ``ids`` the rows ``bitmap[clamp(ids, 0, V-1)]``, bool
+    [len(ids)]."""
+    rows = bitmap if ids is None else bitmap[_clamp_rows(bitmap, ids)]
     req = required[None, :]
-    return torch.all((bitmap & req) == req, dim=-1)
+    return torch.all((rows & req) == req, dim=-1)
 
 
 def signature_filter_ref(sig: torch.Tensor, v: torch.Tensor,
                          required: torch.Tensor) -> torch.Tensor:
     """Gather ``sig[clamp(v)]`` rows, then the superset test, bool [B]."""
-    rows = sig[v.clamp(0, sig.shape[0] - 1)]
-    req = required[None, :]
-    return torch.all((rows & req) == req, dim=-1)
+    return bitmap_superset_ref(sig, required, ids=v)
 
 
 def _clamp_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -139,11 +140,20 @@ def expand_filter_compact_ref(nbr: torch.Tensor, bitmap: torch.Tensor,
 
 
 def delta_merge_ref(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
-                    t_lo, t_hi, j, valid, n_iters: int = 32):
+                    t_lo, t_hi, j, valid, n_iters: int = 32, row=None):
     """Merged base+delta slot resolution with tombstone masking: position
     ``j < b_deg`` reads the base slice, later positions the delta slice;
     base candidates found in ``tomb_nbr[t_lo:t_hi)`` are masked.  Returns
-    ``(v, ok)``."""
+    ``(v, ok)``.  The five fields are per slot, or, with ``row``, per row:
+    slot ``i`` reads ``field[clamp(row[i], 0, R-1)]``.  ``d_start``,
+    ``t_lo`` and ``t_hi`` may be ``None`` and then read as 0."""
+    fields = (b_start, b_deg, d_start, t_lo, t_hi)
+    if row is not None:
+        r = _clamp_rows(b_start, row)
+        fields = tuple(None if f is None else f[r] for f in fields)
+    zero = torch.zeros_like(j)
+    b_start, b_deg, d_start, t_lo, t_hi = (zero if f is None else f
+                                           for f in fields)
     is_base = j < b_deg
     mb = max(1, base_nbr.shape[0])
     md = max(1, delta_nbr.shape[0])

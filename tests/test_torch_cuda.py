@@ -15,10 +15,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_cases import (DELTA_CASES, EFC_BACK_TO_BACK_CAPS,  # noqa: E402
-                         EFC_CASES, EFC_EDGE_CASES, EFC_STREAM_SETS,
-                         GATHER_FIXED_CASES, GATHER_SUM_CASES,
-                         SIG_EDGE_CASES, bitmap_inputs, delta_inputs,
+from torch_cases import (BITMAP_EDGE_CASES, DELTA_CASES,  # noqa: E402
+                         DELTA_FIELDS, DELTA_ROW_CASES,
+                         EFC_BACK_TO_BACK_CAPS, EFC_CASES, EFC_EDGE_CASES,
+                         EFC_STREAM_SETS, GATHER_FIXED_CASES,
+                         GATHER_SUM_CASES, SIG_EDGE_CASES, bitmap_ids_inputs,
+                         bitmap_inputs, delta_inputs, delta_row_inputs,
                          edge_inputs, efc_edge_inputs, efc_inputs,
                          efc_tickets_settled, gather_close,
                          gather_fixed_inputs, gather_sum_inputs, same,
@@ -58,6 +60,67 @@ def test_cuda_bitmap_superset(cuda, b, w):
     got = ops.bitmap_superset(tt(bm, cuda), tt(req, cuda))
     torch.cuda.synchronize()
     same(got, ref.bitmap_superset_ref(tt(bm, cuda), tt(req, cuda)))
+
+
+def _offset_view(a: np.ndarray, cuda, offset: int):
+    """``a`` on the card as a contiguous view ``offset`` int32 words into
+    its buffer (so not 16-byte aligned for offset 1-3)."""
+    flat = torch.empty(a.size + offset, dtype=torch.int32, device=cuda)
+    flat[offset:] = tt(a, cuda).reshape(-1)
+    return flat[offset:].view(a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", BITMAP_EDGE_CASES)
+def test_cuda_bitmap_superset_ids_edge_cases(cuda, n, w):
+    """The ids form on 1 to 9 ids and 5000, out-of-range ids, aligned and
+    as an ``ids[1:]`` view: one launch, bit-equal to the plain version."""
+    bm, req, ids = bitmap_ids_inputs(50, w, n + 1, n * 13 + w)
+    tbm, treq, tids = tt(bm, cuda), tt(req, cuda), tt(ids, cuda)
+    for view in (tids[:n], tids[1:]):
+        ops.reset_launches()
+        got = ops.bitmap_superset(tbm, treq, ids=view)
+        torch.cuda.synchronize()
+        assert ops.launches["bitmap_superset"] == 1
+        same(got, ref.bitmap_superset_ref(tbm, treq, ids=view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,w,n,offset", [
+    (2_641_315, 1, 1 << 20, 0),   # the main path's label filter
+    (200_000, 2, 100_003, 0),     # 8-byte row words
+    (200_000, 2, 100_003, 1),     # 4-byte path: table not 8-byte aligned
+    (200_000, 3, 100_003, 0),
+    (50_000, 5, 100_003, 2),      # req in shared memory
+])
+def test_cuda_bitmap_superset_ids(cuda, v, w, n, offset):
+    bm, req, ids = bitmap_ids_inputs(v, w, n, v + n)
+    tbm, treq, tids = _offset_view(bm, cuda, offset), tt(req, cuda), \
+        tt(ids, cuda)
+    ops.reset_launches()
+    got = ops.bitmap_superset(tbm, treq, ids=tids)
+    torch.cuda.synchronize()
+    assert ops.launches["bitmap_superset"] == 1
+    same(got, ref.bitmap_superset_ref(tbm, treq, ids=tids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,offset", [(1, 1, 0), (7, 1, 0), (1 << 20, 1, 0),
+                                        (100_003, 2, 0), (100_003, 3, 0),
+                                        (100_003, 4, 0), (100_001, 9, 0),
+                                        (100_003, 1, 1), (100_003, 2, 2),
+                                        (100_003, 4, 3)])
+def test_cuda_bitmap_superset_contract(cuda, b, w, offset):
+    """The contract form: 4 consecutive rows a thread as 16-byte loads on an
+    aligned table, per-row loads on a table view that is not 16-byte
+    aligned; one launch, bit-equal to the plain version."""
+    bm, req = bitmap_inputs(b, w, b + w)
+    tbm, treq = _offset_view(bm, cuda, offset), tt(req, cuda)
+    ops.reset_launches()
+    got = ops.bitmap_superset(tbm, treq)
+    torch.cuda.synchronize()
+    assert ops.launches["bitmap_superset"] == 1
+    same(got, ref.bitmap_superset_ref(tbm, treq))
 
 
 @pytest.mark.cuda
@@ -256,6 +319,61 @@ def test_cuda_delta_merge(cuda, k, mb, md, mt, run, mode, n_iters):
                                n_iters=n_iters)
     for g_, w_ in zip(got, want):
         same(g_, w_)
+
+
+def _delta_row_on(cuda, case, offset=0):
+    """A ``DELTA_ROW_CASES`` case on the card: (arrays, given fields, row,
+    j, valid, n_iters, per-slot fields); ``offset`` puts row and j at a
+    view that is not 16-byte aligned."""
+    k, r, mb, md, mt, run, absent, none_valid = case
+    arrays, fields, row, j, valid, n_iters = delta_row_inputs(
+        k, r, mb, md, mt, run, seed=k + r + mb, none_valid=none_valid)
+    given = [None if name in absent else tt(f, cuda)
+             for name, f in zip(DELTA_FIELDS, fields)]
+    rc = np.clip(row, 0, r - 1)
+    per_slot = [tt(np.zeros(k, np.int32) if name in absent else f[rc], cuda)
+                for name, f in zip(DELTA_FIELDS, fields)]
+    return ([tt(a, cuda) for a in arrays], given,
+            _offset_view(row, cuda, offset), _offset_view(j, cuda, offset),
+            tt(valid, cuda), n_iters, per_slot)
+
+
+def _padded(arrays, cuda):
+    """The adjacency arrays as the wrapper pads them (empty: one -1)."""
+    return [a if a.shape[0] else torch.full((1,), -1, dtype=torch.int32,
+                                            device=cuda) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DELTA_ROW_CASES + [
+    # the main path's merged step: a 2^20-slot expansion over 65,536 rows
+    (1 << 20, 1 << 16, 5_185_880, 65_536, 16_384, 40, (), False),
+    (1 << 20, 1 << 16, 5_185_880, 65_536, 0, 4, ("t_lo", "t_hi"), False),
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_delta_merge_row_form(cuda, case, offset):
+    """The row form on every ``DELTA_ROW_CASES`` case and at the main
+    path's size, with row and j aligned and not: one launch, bit-equal to
+    the plain version's row form, and to the contract form on the per-slot
+    arrays."""
+    arrays, given, row, j, valid, n_iters, per_slot = _delta_row_on(
+        cuda, case, offset)
+    ops.reset_launches()
+    got = ops.delta_merge(*arrays, *given, j, valid, n_iters=n_iters,
+                          row=row)
+    torch.cuda.synchronize()
+    assert ops.launches["delta_merge"] == 1
+    padded = _padded(arrays, cuda)
+    for g_, w_ in zip(got, ref.delta_merge_ref(*padded, *given, j, valid,
+                                               n_iters=n_iters, row=row)):
+        same(g_, w_)
+    contract = ops.delta_merge(*arrays, *per_slot, j, valid,
+                               n_iters=n_iters)
+    torch.cuda.synchronize()
+    assert ops.launches["delta_merge"] == 2
+    for c_, w_ in zip(contract, ref.delta_merge_ref(*padded, *per_slot, j,
+                                                    valid, n_iters=n_iters)):
+        same(c_, w_)
 
 
 @pytest.mark.cuda

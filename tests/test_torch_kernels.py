@@ -25,12 +25,14 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro.kernels.delta_merge import delta_merge_pallas  # noqa: E402
 from repro.kernels.segment_gather import (  # noqa: E402
     segment_gather_fixed_pallas, segment_gather_sum_pallas)
-from torch_cases import (DELTA_CASES, EFC_CASES, EFC_EDGE_CASES,  # noqa: E402
-                         GATHER_FIXED_CASES, GATHER_SUM_CASES,
-                         SIG_EDGE_CASES, bitmap_inputs, delta_inputs,
-                         edge_inputs, efc_edge_inputs, efc_inputs,
-                         gather_close, gather_fixed_inputs, gather_sum_inputs,
-                         same, sig_inputs, tile_inputs, tt)
+from torch_cases import (BITMAP_EDGE_CASES, DELTA_CASES,  # noqa: E402
+                         DELTA_FIELDS, DELTA_ROW_CASES, EFC_CASES,
+                         EFC_EDGE_CASES, GATHER_FIXED_CASES, GATHER_SUM_CASES,
+                         SIG_EDGE_CASES, bitmap_ids_inputs, bitmap_inputs,
+                         delta_inputs, delta_row_inputs, edge_inputs,
+                         efc_edge_inputs, efc_inputs, gather_close,
+                         gather_fixed_inputs, gather_sum_inputs, same,
+                         sig_inputs, tile_inputs, tt)
 
 
 # ---------------------------------------------- plain version vs reference
@@ -70,6 +72,26 @@ def test_bitmap_superset(b, w):
     same(got, want)
     same(got, pallas)
     if b > 3:
+        assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("n,w", BITMAP_EDGE_CASES)
+def test_bitmap_superset_ids(n, w):
+    """The ids form (the engine's label and NLF filters) equals the TPU
+    kernel in interpret mode on the rows gathered at the clamped ids: 1 to 9
+    ids and 5000, negative and out-of-range ids, on aligned ids and on an
+    ``ids[1:]`` view."""
+    bm, req, ids = bitmap_ids_inputs(50, w, n + 1, n * 13 + w)
+    tbm, treq, tids = tt(bm), tt(req), tt(ids)
+    tile = 4 if n < 16 else 1024
+    for part, view in ((ids[:n], tids[:n]), (ids[1:], tids[1:])):
+        rows = jnp.asarray(bm[np.clip(part, 0, bm.shape[0] - 1)])
+        pallas = bitmap_superset_pallas(rows, jnp.asarray(req),
+                                        interpret=True, tile=tile)
+        got = ops.bitmap_superset(tbm, treq, ids=view)
+        same(got, pallas)
+        same(got, jref.bitmap_superset_ref(rows, jnp.asarray(req)))
+    if n > 100:
         assert got.any() and not got.all()
 
 
@@ -204,6 +226,39 @@ def test_delta_merge_edge_cases(k, mb, md, mt, run, mode, n_iters):
         want = jref.delta_merge_ref(*map(jnp.asarray, args), n_iters=n_iters)
         for g_, w_ in zip(got, want):
             same(g_, w_)
+
+
+@pytest.mark.parametrize("k,r,mb,md,mt,run,absent,none_valid",
+                         DELTA_ROW_CASES)
+def test_delta_merge_row_form(k, r, mb, md, mt, run, absent, none_valid):
+    """The row form (the engine's merged step: row-level fields, each slot
+    reading its clamped row) equals the TPU kernel in interpret mode on the
+    per-slot arrays ``field[clip(row)]``, an absent field read as zeros;
+    and the contract form on those arrays equals it too."""
+    arrays, fields, row, j, valid, n_iters = delta_row_inputs(
+        k, r, mb, md, mt, run, seed=k + r + mb, none_valid=none_valid)
+    given = [None if name in absent else f
+             for name, f in zip(DELTA_FIELDS, fields)]
+    rc = np.clip(row, 0, r - 1)
+    per_slot = [np.zeros(k, np.int32) if f is None else f[rc] for f in given]
+    want = delta_merge_pallas(*map(jnp.asarray, (*arrays, *per_slot, j,
+                                                 valid)),
+                              n_iters=n_iters, interpret=True)
+    got = ops.delta_merge(*map(tt, arrays),
+                          *(None if f is None else tt(f) for f in given),
+                          tt(j), tt(valid), n_iters=n_iters, row=tt(row))
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
+    contract = ops.delta_merge(*map(tt, arrays), *map(tt, per_slot), tt(j),
+                               tt(valid), n_iters=n_iters)
+    for c_, w_ in zip(contract, want):
+        same(c_, w_)
+    if none_valid:
+        assert bool((got[0] == -1).all()) and not bool(got[1].any())
+    elif k > 100:
+        assert bool(got[1].any())
+    if run > 256:  # tombstones hit
+        assert bool((tt(valid) & ~got[1]).any())
 
 
 @pytest.mark.parametrize("k,mb,md,mt", [(1, 1, 1, 1), (128, 60, 20, 12)])

@@ -185,6 +185,70 @@ def efc_tickets_settled(ops) -> bool:
 SIG_EDGE_CASES = [(n, w2) for w2 in (2, 4, 10) for n in range(1, 10)]
 
 
+# bitmap_superset with row ids: (n, w) for n of 1 to 9 ids and a large n,
+# each run on a 16-byte-aligned ids and on an ids[1:] view
+BITMAP_EDGE_CASES = [(n, w) for w in (1, 2, 3, 5, 9)
+                     for n in (*range(1, 10), 5000)]
+
+
+def bitmap_ids_inputs(v, w, n, seed):
+    """``(bitmap [v, w], required, ids [n])`` for the ids form: ids in
+    ``[-3, v + 3)``, so negative and out-of-range ids clamp; a third of the
+    rows certainly pass."""
+    bm, req = bitmap_inputs(v, w, seed)
+    ids = np.random.default_rng(seed + 1).integers(-3, v + 3, size=n)
+    return bm, req, ids.astype(np.int32)
+
+
+# delta_merge with row ids: (k, rows, mb, md, mt, run, absent, none_valid).
+# ``absent`` names the row-level fields passed as None (read as 0);
+# ``none_valid`` makes every slot invalid.  k % 4 != 0 leaves slots outside
+# the kernel's groups of 4; runs > 256 need more than 8 search rounds; the
+# last case's base array passes 2^20 words (the TPU kernel falls back to its
+# oracle there).
+DELTA_ROW_CASES = [
+    (1, 1, 10, 4, 4, 4, (), False),
+    (203, 40, 300, 50, 40, 4, (), False),
+    (256, 60, 300, 50, 40, 4, ("d_start",), False),
+    (256, 60, 300, 50, 40, 4, ("t_lo",), False),
+    (256, 60, 300, 50, 40, 4, ("t_hi",), False),
+    (258, 60, 300, 0, 0, 4, ("d_start", "t_lo", "t_hi"), False),
+    (130, 30, 300, 50, 40, 4, (), True),
+    (1001, 50, 4000, 64, 3000, 1500, (), False),
+    (4099, 300, (1 << 20) + 5000, 1000, 2000, 40, (), False),
+]
+DELTA_FIELDS = ("b_start", "b_deg", "d_start", "t_lo", "t_hi")
+
+
+def delta_row_inputs(k, r, mb, md, mt, run, seed, none_valid=False):
+    """Seeded row-form ``delta_merge`` inputs: ``(arrays, fields, row, j,
+    valid, n_iters)`` with ``arrays = (base, delta, tomb)`` (tombstones
+    drawn from the base values), ``fields`` the five row-level arrays of
+    ``r`` rows, ``row`` nondecreasing as ragged expansion makes it with a
+    few ids outside ``[0, r)`` (they clamp), and an invalid tail."""
+    rng = np.random.default_rng(seed)
+    vmax = max(60, mb // 2)
+    base = np.sort(rng.integers(0, vmax, size=mb)).astype(np.int32)
+    delta = rng.integers(0, vmax, size=md).astype(np.int32)
+    tomb = np.sort(base[rng.integers(0, max(mb, 1), size=mt)]
+                   if mb else np.zeros(mt, np.int32)).astype(np.int32)
+    t_lo = rng.integers(0, max(mt, 1), size=r)
+    fields = (rng.integers(0, max(mb, 1), size=r), rng.integers(0, 6, size=r),
+              rng.integers(0, max(md, 1), size=r), t_lo,
+              np.minimum(mt, t_lo + rng.integers(0, run, size=r)))
+    row = np.sort(rng.integers(0, r, size=k))
+    out = rng.random(k) < 0.05
+    row[out] = rng.choice([-2, r, r + 5], size=int(out.sum()))
+    j = rng.integers(0, 9, size=k)
+    valid = rng.random(k) < 0.9
+    valid[k - k // 5:] = False
+    if none_valid:
+        valid[:] = False
+    n_iters = 32 if run > 64 else 8
+    return ((base, delta, tomb), tuple(f.astype(np.int32) for f in fields),
+            row.astype(np.int32), j.astype(np.int32), valid, n_iters)
+
+
 def delta_inputs(k, mb, md, mt, seed, labeled=False, run=4, vmax=60,
                  mode="mixed"):
     """Seeded ``delta_merge`` inputs: a sorted base array, a delta array, a

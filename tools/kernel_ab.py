@@ -3,35 +3,93 @@
 
     python3 chip_smoke.py --save-calls build/ab_calls.pt
     python3 tools/kernel_ab.py --src SRC --label NAME build/ab_calls.pt \
-        [--out chiprun_out/kernel_ab.jsonl]
+        [--queries SCALE] [--out chiprun_out/kernel_ab.jsonl]
 
 ``chip_smoke.py --save-calls`` keeps the largest and the smallest call that
-the main path gave ``expand_filter_compact`` and ``signature_filter``.
-This script loads the ``repro_torch`` package of ``SRC`` (this checkout's
-``src``, or a parent commit's unpacked beside it), builds its kernels,
-holds each saved call bit-equal against that tree's plain version and
-times the kernel and the plain version as ``chip_smoke.py`` phase 6 does
-(median of 20 runs, CUDA events, L2 flushed and the host given a head
-start before each).  It also times the kernel with its inputs left in L2
-(``warm_ms``) and without the head start (``events_ms``, the method of
-``chip_smoke.py`` before the head start, which counts the wrapper's host
-time wherever it exceeds the flush), the wrapper's host time per call
-(``host_ms``), and first one launch that does almost nothing
-(``launch_floor_ms``).  Run it for both trees on one card, in turns
-(parent, change, change, parent), to compare two commits' kernels on the
-same inputs.  One JSON line per call is appended to
-``--out``.  Needs a CUDA device.
+the main path gave each kernel of its ``SMALLEST``.  This script loads the
+``repro_torch`` package of ``SRC`` (this checkout's ``src``, or a parent
+commit's unpacked beside it), builds its kernels, and times each saved call
+as ``chip_smoke.py`` phase 6 does (median of 20 runs, CUDA events, L2
+flushed and the host given a head start before each):
+
+* the kernel in the TPU contract's form, held bit-equal against that
+  tree's plain version (``ms``), with its inputs left in L2
+  (``warm_ms``), without the head start (``events_ms``), the wrapper's
+  host time per call (``host_ms``) and the plain version (``plain_ms``).
+  A call that used ``ids=`` (``bitmap_superset``) or ``row=``
+  (``delta_merge``) is timed in this form on its inputs gathered
+  beforehand;
+* for those two kernels, the step segment the main path runs
+  (``segment_ms``, ``segment_host_ms``): in a tree whose wrapper takes
+  ``ids`` / ``row``, the one call; in a tree whose wrapper does not, the
+  gathers the engine made before the call and then the call, as that
+  tree's engine ran them (``segment_form``).
+
+It first times one launch that does almost nothing (``launch_floor_ms``).
+``--queries SCALE`` also counts, with ``torch.profiler``, the CUDA kernels
+of one warm Q2 and Q9 of that tree's engine on LUBM at SCALE universities,
+static and on a live snapshot (``chip_smoke.py``'s base split, every insert
+and delete applied), with the device's busy share of each query's window
+and the median of 11 warm runs.
+Run it for both trees on one card, in turns (parent, change, change,
+parent), to compare two commits on the same inputs.  One JSON line per
+timed call is appended to ``--out``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# warm runs of each profiled query (host clock to a device sync); their
+# median is warm_ms
+WARM_RUNS = 11
+
+
+def query_profiles(torch, scale: int) -> dict:
+    """Warm Q2 and Q9 on a static LUBM engine and on a live snapshot of the
+    same triples: ``WARM_RUNS`` warm runs each (``warm_runs_ms``, host
+    clock to a device sync; their median ``warm_ms``), then one profiled
+    run each."""
+    from chip_smoke import _decode, _sub_store, live_split, profile_queries
+    from repro_torch.core import SparqlEngine
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+    from repro_torch.store import VersionedStore
+
+    def warm(eng):
+        runs = {}
+        for name in ("Q2", "Q9"):
+            eng.query(LUBM_QUERIES[name])
+            runs[name] = []
+            for _ in range(WARM_RUNS):
+                t0 = time.perf_counter()
+                eng.query(LUBM_QUERIES[name])
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+        prof = profile_queries(torch, eng)
+        for name, p in prof.items():
+            p["warm_ms"] = sorted(runs[name])[WARM_RUNS // 2]
+            p["warm_runs_ms"] = runs[name]
+        return prof
+
+    st = generate_lubm(scale=scale, seed=0, density=1.0).finalize()
+    g, maps = type_aware_transform(st)
+    out = {"static": warm(SparqlEngine(g, maps))}
+    base_rows, ins_rows, del_rows = live_split(st)
+    g, maps = type_aware_transform(_sub_store(st, base_rows))
+    store = VersionedStore(g, maps)
+    store.insert_triples(_decode(st, ins_rows))
+    store.delete_triples(_decode(st, del_rows))
+    out["live"] = warm(SparqlEngine(store.snapshot(), maps))
+    return out
 
 
 def main(argv=None) -> int:
@@ -41,6 +99,9 @@ def main(argv=None) -> int:
     ap.add_argument("--src", type=Path, required=True,
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--label", required=True, help="name of this tree")
+    ap.add_argument("--queries", type=int, default=0, metavar="SCALE",
+                    help="also count the CUDA kernels of warm Q2 and Q9 on "
+                         "LUBM at SCALE universities, static and live")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "kernel_ab.jsonl")
     args = ap.parse_args(argv)
@@ -52,7 +113,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(args.src.resolve()))
     sys.path.insert(1, str(ROOT))
-    from chip_smoke import host_ms, launch_floor_ms, max_abs_err, time_ms
+    from chip_smoke import (FUSED_GATHERS, contract_call, host_ms,
+                            launch_floor_ms, max_abs_err, time_ms,
+                            unfused_segment)
     from repro_torch.kernels import _build, ops, ref
 
     _build.build_all()
@@ -61,35 +124,57 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     calls = torch.load(args.calls, map_location="cuda")
-    plains = {"expand_filter_compact": ref.expand_filter_compact_ref,
-              "signature_filter": ref.signature_filter_ref}
     args.out.parent.mkdir(parents=True, exist_ok=True)
+
+    def emit(f, rec: dict) -> None:
+        f.write(json.dumps(rec) + "\n")
+        print(json.dumps(rec), flush=True)
+
     with args.out.open("a") as f:
-        floor = {"label": args.label, "card": card,
-                 "launch_floor_ms": launch_floor_ms(torch)}
-        f.write(json.dumps(floor) + "\n")
-        print(json.dumps(floor), flush=True)
+        emit(f, {"label": args.label, "card": card,
+                 "launch_floor_ms": launch_floor_ms(torch)})
         for name, by_size in calls.items():
-            kern, plain = getattr(ops, name), plains[name]
-            for size, cargs in by_size.items():
-                err = max_abs_err(torch, kern(*cargs), plain(*cargs))
+            kern = getattr(ops, name)
+            plain = getattr(ref, f"{name}_ref")
+            fused = FUSED_GATHERS.get(name) in inspect.signature(
+                kern).parameters
+            for size, (cargs, ckw) in by_size.items():
+                targs, tkw = contract_call(torch, name, cargs, ckw)
+                err = max_abs_err(torch, kern(*targs, **tkw),
+                                  plain(*targs, **tkw))
                 if err != 0:
                     raise SystemExit(f"kernel_ab: {args.label} {name} "
                                      f"{size}: kernel differs from its plain "
                                      f"version")
                 rec = {"label": args.label, "src": str(args.src),
                        "card": card, "name": name, "call": size,
-                       "shapes": [list(a.shape) for a in cargs
+                       "shapes": [list(a.shape) for a in targs
                                   if isinstance(a, torch.Tensor)],
-                       "ms": time_ms(torch, lambda: kern(*cargs)),
-                       "warm_ms": time_ms(torch, lambda: kern(*cargs),
+                       "ms": time_ms(torch, lambda: kern(*targs, **tkw)),
+                       "warm_ms": time_ms(torch, lambda: kern(*targs, **tkw),
                                           flush_l2=False),
-                       "events_ms": time_ms(torch, lambda: kern(*cargs),
+                       "events_ms": time_ms(torch,
+                                            lambda: kern(*targs, **tkw),
                                             head_start=False),
-                       "host_ms": host_ms(torch, lambda: kern(*cargs)),
-                       "plain_ms": time_ms(torch, lambda: plain(*cargs))}
-                f.write(json.dumps(rec) + "\n")
-                print(json.dumps(rec), flush=True)
+                       "host_ms": host_ms(torch, lambda: kern(*targs, **tkw)),
+                       "plain_ms": time_ms(torch,
+                                           lambda: plain(*targs, **tkw))}
+                if ckw.get(FUSED_GATHERS.get(name)) is not None:
+                    seg = ((lambda: kern(*cargs, **ckw)) if fused else
+                           unfused_segment(torch, kern, name, cargs, ckw))
+                    if max_abs_err(torch, seg(), kern(*targs, **tkw)) != 0:
+                        raise SystemExit(f"kernel_ab: {args.label} {name} "
+                                         f"{size}: the step segment differs "
+                                         f"from the contract form")
+                    rec["segment_form"] = ("one call" if fused
+                                           else "gathers + kernel")
+                    rec["segment_ms"] = time_ms(torch, seg)
+                    rec["segment_host_ms"] = host_ms(torch, seg)
+                emit(f, rec)
+        if args.queries:
+            emit(f, {"label": args.label, "card": card,
+                     "scale": args.queries,
+                     "queries": query_profiles(torch, args.queries)})
     return 0
 
 
