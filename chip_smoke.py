@@ -24,9 +24,17 @@ Phases, each fatal on failure (no phase's error is caught):
    engine's form) on ``DELTA_ROW_CASES`` (each optional field absent, no
    valid slot, k % 4 != 0, runs longer than 256, a base array over 2^20
    words) and at the main path's size, row and j aligned and not, beside
-   its contract form, each call one launch; ``segment_gather`` fixed
+   its contract form, each call one launch; ``tile_membership`` in its
+   range form (the engine's) on ``TILE_RANGE_CASES`` (probes out of range,
+   degree 0, degree = tb and past it, tb from 8 to 128, negative
+   candidates, strided and contiguous probes) and in its contract form on
+   its 16-byte and 4-byte load paths; ``expand_filter_compact`` at capacity
+   2^23 with more than 2^22 survivors; ``segment_gather`` fixed
    and ragged, weighted and not, float32 and bfloat16, with negative and
-   out-of-range ids and segments, within the tolerances it prints);
+   out-of-range ids and segments, and the ragged form's
+   ``GATHER_RAGGED_EDGE_CASES`` (every entry dropped, E = 0, d of 1, 33,
+   100, an unaligned table) on both load paths, within the tolerances it
+   prints and bit-equal across the paths);
 4. parity scale: LUBM (scale 8, density 0.6) and BSBM (3000 products)
    through ``SparqlEngine.query`` on the card; the counts must equal
    ``benchmarks/BENCH_exec.json``;
@@ -35,7 +43,10 @@ Phases, each fatal on failure (no phase's error is caught):
    warm latency, peak device memory; every count and every binding row is
    held against the port's CPU run of the same query; after the launch
    window, one warm Q2 and Q9 each under ``torch.profiler``: the CUDA
-   kernels it launched and the device's busy share of its window;
+   kernels it launched and the device's busy share of its window; then a
+   synthetic graph whose last fused step binds 6,000,000 rows: the default
+   ``ExecOpts.max_cap`` (2^22) must refuse it, and ``max_cap = 1 << 23``
+   must answer it equal to the port's CPU run;
 5b. live store at the same scale: the ``benchmarks/bench_update.py``
    stream (12.5% of the plain triples held back and inserted in 8 batches,
    a tenth as many deletes; the last batch as SPARQL UPDATE text) into a
@@ -62,16 +73,17 @@ Phases, each fatal on failure (no phase's error is caught):
    held bit-equal against its plain version and timed beside it with CUDA
    events, with its byte bound (and, for ``signature_filter`` and
    ``bitmap_superset``'s ids form, the distinct 32-byte sectors its
-   gathers touch); ``bitmap_superset`` and ``delta_merge`` also in their
-   contract form on the same work gathered beforehand, and as the step
-   segment the engine ran before they took in their gathers (the gathers,
-   then the contract form);
+   gathers touch); ``tile_membership``, ``bitmap_superset`` and
+   ``delta_merge`` also in their contract form on the same work gathered
+   beforehand, and as the step segment the engine ran before they took in
+   their gathers (the gathers or the tile build, then the contract form);
    the ``expand_filter_compact`` calls of each path counted by power-of-two
    capacity; and ``segment_gather``
    at its users' shapes (DLRM RM-2's largest table looked up by a
    ``serve_bulk`` batch; GCN aggregation over ``ogb_products``), held
    against its plain version within tolerance and timed beside it and
-   beside ``torch.nn.functional.embedding_bag``.
+   beside ``torch.nn.functional.embedding_bag``; the ragged form both
+   through its wrapper and as its kernel alone on the sorted keys.
 
 The run drives four paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
@@ -135,12 +147,15 @@ ENGINE_KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
                   "bitmap_superset", "signature_filter", "delta_merge")
 # the redesigned kernels, also timed at their smallest main-path call (and
 # saved for tools/kernel_ab.py by --save-calls)
-SMALLEST = ("expand_filter_compact", "signature_filter", "bitmap_superset",
-            "delta_merge")
+SMALLEST = ("expand_filter_compact", "tile_membership", "signature_filter",
+            "bitmap_superset", "delta_merge")
 # the kernels that take in the gathers the main path ran before them: with
-# ids= / row= each call is one launch where the parent tree made a torch
-# gather (bitmap_superset) or five gathers and a fill (delta_merge) first
-FUSED_GATHERS = {"bitmap_superset": "ids", "delta_merge": "row"}
+# ids= / row= / iptr= each call is one launch where an earlier tree made a
+# torch gather (bitmap_superset), five gathers and a fill (delta_merge), or
+# the probe clamp, two iptr gathers and the adjacency tile's build
+# (tile_membership) first
+FUSED_GATHERS = {"bitmap_superset": "ids", "delta_merge": "row",
+                 "tile_membership": "iptr"}
 # the warm queries whose CUDA kernels phases 5 and 5b count with
 # torch.profiler
 PROFILED = ("Q2", "Q9")
@@ -301,6 +316,29 @@ def bound(torch, ref, name, args, kw) -> tuple[float, float, str]:
         uniq = torch.unique(v.clamp(0, sig.shape[0] - 1)).numel()
         byts = nb(v) + uniq * sig.shape[1] * 4 + nb(req) + v.shape[0]
         ops = 2 * v.shape[0] * sig.shape[1]
+    elif name == "tile_membership" and kw.get("iptr") is not None:
+        # the range form: probe and v a row, the distinct iptr sectors the
+        # probes touch, the distinct nbr words of the rows whose v >= 0
+        # (lo to min(hi, lo + tb)), one byte out a row
+        v, nbr = args
+        iptr, probe, tb = kw["iptr"], kw["probe"], kw["tb"]
+        p = probe.long().clamp(0, iptr.shape[0] - 2)
+        lo = iptr[p].long()
+        end = torch.minimum(iptr[p + 1].long(), lo + tb)
+        ln = (end - lo).clamp(min=0) * (v >= 0)
+        word = iptr.data_ptr() % 32 // 4
+        sectors = torch.unique(torch.cat([(p + word) // 8,
+                                          (p + 1 + word) // 8])).numel()
+        runs = torch.zeros(nbr.shape[0] + 1, dtype=torch.int32,
+                           device=v.device)
+        live = ln > 0
+        runs.index_add_(0, lo[live], torch.ones_like(lo[live],
+                                                     dtype=torch.int32))
+        runs.index_add_(0, end[live], -torch.ones_like(lo[live],
+                                                       dtype=torch.int32))
+        words = int((runs.cumsum(0) > 0).sum().item())
+        byts = 9 * v.shape[0] + 32 * sectors + 4 * words
+        ops = 2 * int(ln.sum().item())
     elif name == "tile_membership":
         a, b = args
         byts = nb(a) + nb(b) + a.numel()
@@ -386,11 +424,35 @@ def max_abs_err(torch, got, want) -> float:
     return err
 
 
+def adjacency_tile(torch, nbr, iptr, probe, tb):
+    """The executor's ``adj_tile`` as the engine built it before the range
+    form of ``tile_membership``: the probe clamped, its ``iptr`` range,
+    then the ``[rows, tb]`` tile of its adjacency, -2 past the range."""
+    psafe = probe.clamp(0, iptr.shape[0] - 2)
+    lo = iptr[psafe]
+    hi = iptr[psafe + 1]
+    pos = lo[:, None] + torch.arange(tb, dtype=torch.int32,
+                                     device=lo.device)[None, :]
+    return torch.where(pos < hi[:, None],
+                       nbr[pos.clamp(0, nbr.shape[0] - 1)], -2)
+
+
+def contract_out(name, out):
+    """A contract-form result in the fused form's shape (``tile_membership``
+    answers ``[rows, 1]`` for the range form's ``[rows]``)."""
+    return out[:, 0] if name == "tile_membership" else out
+
+
 def contract_call(torch, name, args, kw):
-    """The TPU-contract form of a recorded call that used ``ids=`` or
-    ``row=``: ``(args, kw)`` with the rows or the per-slot fields gathered
-    beforehand (absent fields as zeros, as the main path filled them
-    before), so the kernel is timed on the same work without the gathers."""
+    """The TPU-contract form of a recorded call that used ``ids=``,
+    ``row=`` or ``iptr=``: ``(args, kw)`` with the rows, the per-slot fields
+    or the adjacency tile gathered beforehand (absent fields as zeros, as
+    the main path filled them before), so the kernel is timed on the same
+    work without the gathers."""
+    if name == "tile_membership" and kw.get("iptr") is not None:
+        v, nbr = args
+        return (v[:, None], adjacency_tile(torch, nbr, kw["iptr"],
+                                           kw["probe"], kw["tb"])), {}
     if name == "bitmap_superset" and kw.get("ids") is not None:
         table, req = args
         ids = kw["ids"].long().clamp(0, table.shape[0] - 1)
@@ -404,12 +466,20 @@ def contract_call(torch, name, args, kw):
 
 
 def unfused_segment(torch, kern, name, args, kw):
-    """The step segment as the engine ran it before ``ids=`` / ``row=``:
-    the gathers it made before the call (the label filter's
+    """The step segment as the engine ran it before ``ids=`` / ``row=`` /
+    ``iptr=``: the gathers it made before the call (the label filter's
     ``bitmap_src[vsafe]``; the merged step's ``zeros_like`` fill and its
-    five field gathers), then the contract-form kernel ``kern``.  Runs
-    against any tree's kernels, the parent's included."""
-    if name == "bitmap_superset":
+    five field gathers; the +INT check's probe clamp, ``iptr`` gathers and
+    tile build), then the contract-form kernel ``kern``.  Runs against any
+    tree's kernels, the parent's included."""
+    if name == "tile_membership":
+        v, nbr = args
+
+        def segment():
+            tile = adjacency_tile(torch, nbr, kw["iptr"], kw["probe"],
+                                  kw["tb"])
+            return kern(v[:, None], tile)[:, 0]
+    elif name == "bitmap_superset":
         table, req = args
         ids = kw["ids"]
 
@@ -600,6 +670,7 @@ def synthetic_checks(torch, ops, ref) -> None:
     log(f"phase 3: {len(cases)} kernel checks bit-equal to the plain versions")
     edge_checks(torch, ops, ref)
     fused_checks(torch, ops, ref)
+    range_checks(torch, ops, ref)
     gather_checks(torch, ops, ref, rng)
 
 
@@ -685,6 +756,18 @@ def edge_checks(torch, ops, ref) -> None:
         f"versions; ticket words settled")
 
 
+def launched_once(torch, ops, name, kern, plain, what):
+    """``kern()``, which must launch kernel ``name`` once and equal
+    ``plain()`` bit for bit; returns its result."""
+    before = ops.launches[name]
+    got = kern()
+    torch.cuda.synchronize()
+    check(ops.launches[name] == before + 1, f"{what}: not one launch")
+    check(max_abs_err(torch, got, plain()) == 0,
+          f"{what}: kernel differs from its plain version")
+    return got
+
+
 def fused_checks(torch, ops, ref) -> None:
     """Phase 3, the forms that take in the main path's gathers, from
     ``tests/torch_cases.py``, each call one launch and bit-equal to its
@@ -711,13 +794,8 @@ def fused_checks(torch, ops, ref) -> None:
 
     def one_launch(name, kern, plain, what):
         nonlocal n
-        before = ops.launches[name]
-        got = kern()
-        torch.cuda.synchronize()
-        check(ops.launches[name] == before + 1, f"{what}: not one launch")
-        check(max_abs_err(torch, got, plain()) == 0,
-              f"{what}: kernel differs from its plain version")
         n += 1
+        return launched_once(torch, ops, name, kern, plain, what)
 
     for n_ids, w in BITMAP_EDGE_CASES:
         bm, req, ids = bitmap_ids_inputs(50, w, n_ids + 1, n_ids * 13 + w)
@@ -786,6 +864,67 @@ def fused_checks(torch, ops, ref) -> None:
         f"versions, one launch each")
 
 
+def range_checks(torch, ops, ref) -> None:
+    """Phase 3, ``tile_membership`` and the compaction kernel's capacity,
+    from ``tests/torch_cases.py``, each call one launch and bit-equal to its
+    plain version: the range form on ``TILE_RANGE_CASES`` and at the main
+    path's size, with the probe as a strided column and contiguous; the
+    contract form on 16-byte rows (tb = 4 to 128), on 4-byte words (an
+    unaligned b, tb of 12 and 129) and with several results a row; and
+    ``expand_filter_compact`` at capacity 2^23 with every slot surviving
+    (8,388,608 survivors, past the 2^22 it once refused)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (TILE_RANGE_CASES, efc_edge_inputs,
+                             tile_inputs, tile_range_inputs, tt)
+
+    dev = "cuda"
+    n = 0
+
+    def one_launch(name, kern, plain, what):
+        nonlocal n
+        n += 1
+        return launched_once(torch, ops, name, kern, plain, what)
+
+    for case in TILE_RANGE_CASES + [(1 << 15, 2_641_315 // 16, 32, 32)]:
+        rows, nv, max_deg, tb = case
+        nbr, iptr, table, v = tile_range_inputs(rows, nv, max_deg, tb,
+                                                rows + tb)
+        ttable = tt(table, dev)
+        args = (tt(v, dev), tt(nbr, dev))
+        for probe in (ttable[:, 1], ttable[:, 1].contiguous()):
+            kw = dict(iptr=tt(iptr, dev), probe=probe, tb=tb)
+            one_launch("tile_membership",
+                       lambda: ops.tile_membership(*args, **kw),
+                       lambda: ref.tile_membership_ref(*args, **kw),
+                       f"tile_membership range form {case} "
+                       f"stride={probe.stride(0)}")
+    for rows, ta, tb, offset in ((5000, 1, 4, 0), (32768, 1, 32, 0),
+                                 (5000, 1, 128, 0), (5000, 1, 32, 1),
+                                 (5000, 1, 12, 0), (5000, 1, 129, 0),
+                                 (3001, 3, 8, 0), (1000, 65, 8, 0)):
+        a, b = tile_inputs(rows, ta, tb, rows + ta + tb)
+        flat = torch.empty(b.size + offset, dtype=torch.int32, device=dev)
+        flat[offset:] = tt(b, dev).reshape(-1)
+        targs = (tt(a, dev), flat[offset:].view(b.shape))
+        one_launch("tile_membership", lambda: ops.tile_membership(*targs),
+                   lambda: ref.tile_membership_ref(*targs),
+                   f"tile_membership contract form R={rows} TA={ta} "
+                   f"TB={tb} offset={offset}")
+    cap = 1 << 23
+    args, bid = efc_edge_inputs("all_survive", cap)
+    targs = [tt(a, dev) for a in args]
+    tbid = tt(np.int32(bid), dev)
+    got = one_launch("expand_filter_compact",
+                     lambda: ops.expand_filter_compact(*targs, tbid, cap),
+                     lambda: ref.expand_filter_compact_ref(*targs, tbid, cap),
+                     f"expand_filter_compact at capacity {cap}")
+    check(int(got[2]) == cap, f"expand_filter_compact at capacity {cap}: "
+                              f"{int(got[2])} survivors, expected {cap}")
+    log(f"phase 3: {n} checks of tile_membership's range and contract forms "
+        f"and of expand_filter_compact at capacity 2^23 ({cap} survivors) "
+        f"bit-equal to the plain versions, one launch each")
+
+
 def gather_checks(torch, ops, ref, rng) -> None:
     """Phase 3, ``segment_gather``: fixed and ragged, weighted and not,
     float32 and bfloat16, against the plain versions within
@@ -840,6 +979,37 @@ def gather_checks(torch, ops, ref, rng) -> None:
                          dtype, hot, f"segment_gather_sum {dtype} V={v} D={d} "
                          f"E={e} S={s} weighted={weighted}")
             n += 1
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import GATHER_RAGGED_EDGE_CASES, gather_ragged_edge_inputs
+
+    for v, d, e, s, kind, dtype, offset in GATHER_RAGGED_EDGE_CASES:
+        dt = getattr(torch, dtype)
+        table, idx, seg, w = gather_ragged_edge_inputs(v, d, e, s, kind,
+                                                       e + d)
+        targs = (torch.from_numpy(idx).to(dev), torch.from_numpy(seg).to(dev),
+                 s, torch.from_numpy(w).to(dev, dt))
+
+        def placed(off):
+            flat = torch.zeros(table.size + off, dtype=dt, device=dev)
+            flat[off:] = torch.from_numpy(table).to(dev, dt).reshape(-1)
+            return flat[off:].view(table.shape)
+
+        what = (f"segment_gather_sum {kind} {dtype} V={v} D={d} E={e} S={s} "
+                f"offset={offset}")
+        before = ops.launches["segment_gather"]
+        got = ops.segment_gather_sum(placed(offset), *targs)
+        torch.cuda.synchronize()
+        check(ops.launches["segment_gather"] == before + 1,
+              f"{what}: not one launch")
+        gather_close(torch, got,
+                     ref.segment_gather_sum_ref(placed(offset), *targs),
+                     dtype, max(1, -(-e // s)), what)
+        other = ops.segment_gather_sum(placed(0 if offset else 1), *targs)
+        check(torch.equal(got, other),
+              f"{what}: the 16-byte and 4-byte load paths differ")
+        check(kind == "mixed" or not bool(got.float().any()),
+              f"{what}: a dropped entry was summed")
+        n += 1
     log(f"phase 3: {n} segment_gather checks within tolerance "
         f"(rtol = atol: float32 1e-5 for runs <= 32 entries, 1e-4 for "
         f"longer runs; bfloat16 2e-2)")
@@ -954,6 +1124,66 @@ def run_full(torch, ops, scale: int):
     log(f"phase 5: all {len(LUBM_QUERIES)} counts and rows equal the CPU "
         f"run; peak device memory {info['peak_device_bytes']} B")
     return info, st, (g, maps, eng, cpu)
+
+
+# the capacity graph: hubs typed ub:Hub, each linked to every mid, each mid
+# holding its own leaves, so the query below binds hubs x mids x leaves =
+# 6,000,000 rows, past the default ExecOpts.max_cap of 2^22
+CAP_GRAPH = dict(hubs=2000, mids=100, leaves=30)
+CAP_QUERY = ("SELECT ?x ?y ?z WHERE { ?x rdf:type ub:Hub . "
+             "?x ub:link ?y . ?y ub:leaf ?z . }")
+
+
+def run_capacity(torch) -> dict:
+    """Phase 5, the capacity bound: on ``CAP_GRAPH`` the default options
+    must refuse ``CAP_QUERY`` (its step passes 2^22 rows), and
+    ``ExecOpts(max_cap=1 << 23)`` must answer it on the card, every row
+    equal to the port's CPU run."""
+    from repro_torch.core import ExecOpts, SparqlEngine
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.triples import TripleStore
+
+    hubs, mids, leaves = (CAP_GRAPH[k] for k in ("hubs", "mids", "leaves"))
+    st = TripleStore()
+    st.add_many((f"ub:Hub{i}", "rdf:type", "ub:Hub") for i in range(hubs))
+    st.add_many((f"ub:Hub{i}", "ub:link", f"ub:Mid{j}")
+                for i in range(hubs) for j in range(mids))
+    st.add_many((f"ub:Mid{j}", "ub:leaf", f"ub:Leaf{j}_{k}")
+                for j in range(mids) for k in range(leaves))
+    g, maps = type_aware_transform(st.finalize())
+    want_rows = hubs * mids * leaves
+    try:
+        SparqlEngine(g, maps).query(CAP_QUERY)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "max_cap" in refused,
+          f"capacity query: the default max_cap did not refuse it "
+          f"({refused})")
+    opts = ExecOpts(max_cap=1 << 23)
+    t0 = time.perf_counter()
+    res = SparqlEngine(g, maps, opts=opts).query(CAP_QUERY)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    want = SparqlEngine(g, maps, opts=opts, device="cpu").query(CAP_QUERY)
+    check(res.count == want.count == want_rows,
+          f"capacity query: card {res.count}, CPU {want.count}, expected "
+          f"{want_rows}")
+    check(np.array_equal(res.rows, want.rows),
+          "capacity query: card rows differ from the CPU run")
+    base = res.stats["exec"]["branches"][0]["base"]
+    big = [i for i, r in enumerate(base["step_rows"]) if r > 1 << 22]
+    check(bool(big) and all(base["caps"][i] > 1 << 22
+                            and base["step_kernels"][i] == "expand_filter"
+                            for i in big),
+          f"capacity query: no fused step past 2^22 rows ({base})")
+    out = {"graph": CAP_GRAPH, "rows": int(res.count), "card_ms": card_ms,
+           "refused_at_default": refused,
+           **{k: base[k] for k in ("step_rows", "caps", "step_kernels")}}
+    log(f"phase 5: capacity query: {res.count} rows at max_cap 2^23 equal "
+        f"the CPU run ({card_ms:.1f} ms cold); the default max_cap refused "
+        f"it: {refused}")
+    return out
 
 
 # ------------------------------------------------------- query families
@@ -1552,7 +1782,8 @@ def kernel_table(torch, ops, ref, rec: Recorder,
             # beforehand), and the segment as the engine ran it before:
             # the gathers, then the contract-form kernel
             cargs, ckw = contract_call(torch, name, args, kw)
-            check(max_abs_err(torch, kern(*cargs, **ckw), got) == 0,
+            check(max_abs_err(torch, contract_out(name, kern(*cargs, **ckw)),
+                              got) == 0,
                   f"{name}: the contract form differs from the fused form "
                   f"at {rows}")
             c_byts, c_ops, _ = bound(torch, ref, name, cargs, ckw)
@@ -1700,13 +1931,14 @@ def gather_row(torch, ops, ref, inputs, outs, by_path) -> dict:
     hot = int(torch.bincount(dst.long(), minlength=n).max().item())
     r_err = gather_close(torch, outs["ragged"], plain_ragged(), "float32",
                          hot, "segment_gather_sum at the ogb_products shape")
-    # the kernel alone, on the entries its wrapper sorted
+    # the kernel alone, on the keys its wrapper sorted; embedding_bag on
+    # the entries in that order
     seg, order = torch.sort(dst, stable=True)
     offsets = torch.searchsorted(
         seg, torch.arange(n + 1, dtype=torch.int32, device="cuda"),
         out_int32=True)
     idx_s, w_s = src[order].contiguous(), ew[order].contiguous()
-    del seg, order
+    del seg
     lib_r = F.embedding_bag(idx_s, feat, offsets[:-1].long(), mode="sum",
                             per_sample_weights=w_s)
     gather_close(torch, lib_r, outs["ragged"], "float32", hot,
@@ -1714,8 +1946,8 @@ def gather_row(torch, ops, ref, inputs, outs, by_path) -> dict:
     del lib_r
     r_ms = time_ms(torch, lambda: ops.segment_gather_sum(feat, src, dst, n,
                                                          ew))
-    r_kernel_ms = time_ms(torch, lambda: ops._gather_launch(
-        feat, idx_s, w_s, offsets, 0, n))
+    r_kernel_ms = time_ms(torch, lambda: ops._gather_sum_launch(
+        feat, src, ew, order, offsets, n))
     r_plain_ms = time_ms(torch, plain_ragged, reps=3)
     r_library_ms = time_ms(torch, lambda: F.embedding_bag(
         idx_s, feat, offsets[:-1].long(), mode="sum", per_sample_weights=w_s))
@@ -1818,6 +2050,7 @@ def main(argv=None) -> int:
     parity, (full, st, static) = window("static", lambda: (
         run_parity(torch, bench), run_full(torch, ops, args.scale)))
     full["profiles"] = profile_queries(torch, static[2])
+    full["capacity"] = run_capacity(torch)
     params, finish = window("params", lambda: run_params(torch, ops,
                                                          *static))
     finish()

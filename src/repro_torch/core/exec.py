@@ -356,8 +356,8 @@ def _nontree_mask(dg: DeviceGraph, step: Step, sarr, b_rows, p_rows, v_new,
         use_out = c.forward or c.self_loop
         nbr = dg.arrays["out_nbr_el" if use_out else "in_nbr_el"]
         probe = v_new if c.self_loop else b_rows[:, c.other]
-        psafe = probe.clamp(0, n - 1)
         if c.pvar_idx >= 0:
+            psafe = probe.clamp(0, n - 1)
             el_raw = p_rows[:, c.pvar_idx]
             bound_ok = el_raw >= 0
             if dg.delta_mode:
@@ -393,14 +393,13 @@ def _nontree_mask(dg: DeviceGraph, step: Step, sarr, b_rows, p_rows, v_new,
             ok = ok & found & bound_ok
             continue
         iptr = sarr[f"nt{ci}_iptr"]
-        lo = iptr[psafe]
-        hi = iptr[psafe + 1]
         if dg.delta_mode:
+            psafe = probe.clamp(0, n - 1)
             # base membership (padded rows: zero-degree past the base id
             # spaces), minus tombstones, plus delta inserts; +INT tiles only
             # cover the base CSR, so delta mode always searches
-            found = kops.edge_exists(nbr, lo, hi, v_new,
-                                     n_iters=dg.max_log_deg)
+            found = kops.edge_exists(nbr, iptr[psafe], iptr[psafe + 1],
+                                     v_new, n_iters=dg.max_log_deg)
             ti = sarr.get(f"nt{ci}_t_iptr")
             if ti is not None:
                 dead = kops.edge_exists(sarr[f"nt{ci}_t_nbr"], ti[psafe],
@@ -418,18 +417,16 @@ def _nontree_mask(dg: DeviceGraph, step: Step, sarr, b_rows, p_rows, v_new,
             (dg.max_deg_out_el if use_out else dg.max_deg_in_el)[c.elabel]
         )
         if opts.use_int and 0 < max_deg <= opts.int_tile:
-            # +INT: gather the probe side's whole adjacency tile (bounded by
-            # int_tile) and test every candidate of this step against it
+            # +INT: test every candidate of this step against the probe
+            # side's whole adjacency tile (bounded by int_tile); the kernel
+            # clamps the probe and reads the tile from iptr and nbr itself
             tb = _next_pow2(max(8, max_deg))
-            pos = lo[:, None] + torch.arange(tb, dtype=I32,
-                                             device=lo.device)[None, :]
-            in_range = pos < hi[:, None]
-            adj_tile = torch.where(
-                in_range, nbr[pos.clamp(0, nbr.shape[0] - 1)], -2)
-            found = kops.tile_membership(v_new[:, None], adj_tile)[:, 0]
+            found = kops.tile_membership(v_new, nbr, iptr=iptr, probe=probe,
+                                         tb=tb)
         else:
-            found = kops.edge_exists(nbr, lo, hi, v_new,
-                                     n_iters=dg.max_log_deg)
+            psafe = probe.clamp(0, n - 1)
+            found = kops.edge_exists(nbr, iptr[psafe], iptr[psafe + 1],
+                                     v_new, n_iters=dg.max_log_deg)
         ok = ok & found
     return ok
 

@@ -31,22 +31,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C signature of each exported launcher (every one returns cudaError_t)
-SIGNATURES: dict[str, tuple[str, list]] = {
-    "expand_filter": ("repro_expand_filter_compact",
+L = ctypes.c_longlong
+# each launcher: (library, exported C symbol, its argument types); every one
+# returns cudaError_t
+SIGNATURES: dict[str, tuple[str, str, list]] = {
+    "expand_filter": ("expand_filter", "repro_expand_filter_compact",
                       [P, I, P, I, I, P, P, P, I, P, P, I, P, P, P, P, I, P]),
-    "edge_exists": ("repro_edge_exists", [P, P, P, P, P, I, I, I, P]),
-    "tile_membership": ("repro_tile_membership", [P, P, P, I, I, I, P]),
-    "bitmap_superset": ("repro_bitmap_superset",
+    "edge_exists": ("edge_exists", "repro_edge_exists",
+                    [P, P, P, P, P, I, I, I, P]),
+    "tile_membership": ("tile_membership", "repro_tile_membership",
+                        [P, P, P, I, I, I, P]),
+    "tile_membership_range": ("tile_membership",
+                              "repro_tile_membership_range",
+                              [P, I, P, I, P, L, P, I, I, P, P]),
+    "bitmap_superset": ("bitmap_superset", "repro_bitmap_superset",
                         [P, P, P, P, I, I, I, I, P]),
-    "signature_filter": ("repro_signature_filter",
+    "signature_filter": ("signature_filter", "repro_signature_filter",
                          [P, P, P, P, I, I, I, I, P]),
-    "delta_merge": ("repro_delta_merge",
+    "delta_merge": ("delta_merge", "repro_delta_merge",
                     [P, I, P, I, P, I, P, P, P, P, P, P, I, P, P, P, P, I, I,
                      P]),
-    "segment_gather": ("repro_segment_gather",
-                       [P, I, I, I, P, P, P, I, I, P, P]),
+    "segment_gather": ("segment_gather", "repro_segment_gather",
+                       [P, I, I, I, P, P, I, I, P, P]),
+    "segment_gather_sum": ("segment_gather", "repro_segment_gather_sum",
+                           [P, I, I, I, I, P, P, P, P, I, P, P]),
 }
+LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
 _lock = threading.Lock()
 _funcs: dict[str, ctypes._CFuncPtr] = {}
@@ -76,7 +86,7 @@ def build_all() -> dict[str, Path]:
     register/spill report of each build is kept beside its library as
     ``<name>.ptxas.txt``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SIGNATURES}
+    paths = {name: _lib_path(name) for name in LIBRARIES}
     procs = {}
     for name, path in paths.items():
         if path.exists():
@@ -101,17 +111,18 @@ def build_all() -> dict[str, Path]:
 
 
 def kernel(name: str):
-    """The ctypes launcher of kernel library ``name`` (built and loaded at
-    the first call)."""
+    """The ctypes launcher ``name`` of ``SIGNATURES`` (every library built
+    and loaded at the first call)."""
     fn = _funcs.get(name)
     if fn is not None:
         return fn
     with _lock:
         if not _funcs:
-            for lib_name, path in build_all().items():
-                symbol, argtypes = SIGNATURES[lib_name]
-                f = getattr(ctypes.CDLL(str(path)), symbol)
+            libs = {lib: ctypes.CDLL(str(path))
+                    for lib, path in build_all().items()}
+            for entry, (lib, symbol, argtypes) in SIGNATURES.items():
+                f = getattr(libs[lib], symbol)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _funcs[lib_name] = f
+                _funcs[entry] = f
     return _funcs[name]

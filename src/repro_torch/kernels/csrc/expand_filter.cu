@@ -52,13 +52,18 @@
 //     follows the -1 it replaces.  No block has to fill a tail alone.
 //   * Scratch is reused and never cleared between calls: the wrapper keeps
 //     one status buffer per (device, stream), zeroed by torch.zeros when
-//     made.  Its ticket word carries an epoch that the last logical tile
-//     moves on once every ticket of the call is taken, and every status
-//     word carries the epoch of the call that wrote it, so words of earlier
-//     calls read as not ready and nothing has to reset them (the buffer is
-//     zeroed again every 2^38 calls, before the 39-bit epoch could come
-//     round).  The epoch lives on the device, so a call replayed from a
-//     CUDA graph moves it on too.
+//     made, with a status word per tile of the largest call so far and a
+//     ticket word last (a larger call gets a new, larger buffer).  Its
+//     ticket word carries an epoch that the last logical tile moves on once
+//     every ticket of the call is taken, and every status word carries the
+//     epoch of the call that wrote it, so words of earlier calls read as
+//     not ready and nothing has to reset them (the buffer is zeroed again
+//     every 2^30 calls, before the 31-bit epoch could come round).  The
+//     epoch lives on the device, so a call replayed from a CUDA graph moves
+//     it on too.
+//   * Any int32 capacity: a status word's value holds a count up to
+//     2^31 - 1, the ticket word's low half any tile count, and slot
+//     arithmetic that could pass 2^31 near the top runs in 64 bits.
 
 // The bound id is read on the device (a step's baked scalar or a
 // parameterized plan's params[slot]), once per block.
@@ -69,24 +74,23 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCapacity = 1 << 22;
-constexpr int kMaxTiles = kMaxCapacity / (kThreads * 8);
 constexpr int kMinBlocks = 128;  // fewer slots per thread below this grid
 constexpr int kWindow = 2048;   // rows of the tile's window kept in shared
 constexpr unsigned kFull = 0xffffffffu;
 
-// The wrapper's persistent scratch, one per (device, stream): kMaxTiles
-// status words, then the ticket word.  The ticket word holds the tickets
-// taken by the running call (low kTicketBits) and the call's epoch (above).
-// A status word holds a tile's value (low kValueBits), its flag (next 2
-// bits: 0 none, 1 aggregate, 2 inclusive prefix) and the epoch of the call
-// that wrote it (above): a word of an earlier call never reads as ready.
+// The wrapper's persistent scratch, one per (device, stream): at least
+// n_tiles status words, then the ticket word, its last word.  The ticket
+// word holds the tickets taken by the running call (low kTicketBits) and
+// the call's epoch (above).  A status word holds a tile's value (low
+// kValueBits), its flag (next 2 bits: 0 none, 1 aggregate, 2 inclusive
+// prefix) and the epoch of the call that wrote it (above, 31 bits): a word
+// of an earlier call never reads as ready.
 struct Scratch {
-  unsigned long long status[kMaxTiles];
-  unsigned long long ticket;
+  unsigned long long* status;
+  unsigned long long* ticket;
 };
-constexpr int kTicketBits = 24;
-constexpr int kValueBits = 23;  // a count is at most kMaxCapacity = 2^22
+constexpr int kTicketBits = 32;  // holds any int32 tile count
+constexpr int kValueBits = 31;   // a count is at most 2^31 - 1
 constexpr unsigned long long kAggregate = 1ull << kValueBits;
 constexpr unsigned long long kPrefix = 2ull << kValueBits;
 constexpr int kEpochShift = kValueBits + 2;
@@ -169,11 +173,13 @@ __device__ __forceinline__ void find_slots(
   };
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    const int k = k0 + i * kThreads + static_cast<int>(threadIdx.x);
+    const long long kk =
+        static_cast<long long>(k0) + i * kThreads + threadIdx.x;
     v[i] = -1;
     row[i] = -1;
     ok[i] = false;
-    if (k >= n_eff) continue;
+    if (kk >= n_eff) continue;
+    const int k = static_cast<int>(kk);
     int lo = u0;
     int hi = u1;
     while (lo < hi) {
@@ -196,7 +202,7 @@ __device__ __forceinline__ void find_slots(
 
 template <int kItems>
 __global__ void __launch_bounds__(kThreads)
-expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
+expand_filter_kernel(Args a, Scratch scratch, int n_tiles,
                      int* __restrict__ v_out, int* __restrict__ row_out,
                      int* __restrict__ count_out) {
   constexpr int kTile = kThreads * kItems;
@@ -219,17 +225,18 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
   // While the ticket is taken: the bound id, the total and offs at
   // kThreads evenly spaced pivots, the first round of every row search
   const int n = a.r_rows;
-  const int stride = (n + kThreads - 1) / kThreads;
-  s_piv[t] = __ldg(a.offs + min((t + 1) * stride - 1, n - 1));
+  const int stride = (n - 1) / kThreads + 1;
+  s_piv[t] = __ldg(a.offs + min(static_cast<long long>(t + 1) * stride - 1,
+                                static_cast<long long>(n - 1)));
   if (t == 0) {
-    const unsigned long long ticket = atomicAdd(&scratch->ticket, 1ull);
+    const unsigned long long ticket = atomicAdd(scratch.ticket, 1ull);
     const int tile = static_cast<int>(ticket & ((1ull << kTicketBits) - 1));
     const unsigned long long epoch = ticket >> kTicketBits;
     s_tile = tile;
     s_epoch = epoch << kEpochShift;
     // every ticket of this call is taken: the next call starts a new epoch
     if (tile == n_tiles - 1) {
-      scratch->ticket = (epoch + 1) << kTicketBits;
+      *scratch.ticket = (epoch + 1) << kTicketBits;
     }
   } else if (t == 32) {
     s_bid = __ldg(a.bound);
@@ -240,12 +247,14 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
   __syncthreads();
   const int tile = s_tile;
   const int k0 = tile * kTile;
-  const int k_end = min(k0 + kTile, a.capacity);
+  const int k_end = static_cast<int>(
+      min(static_cast<long long>(k0) + kTile,
+          static_cast<long long>(a.capacity)));
 
   // this tile's range of both outputs reads -1 unless a survivor lands there
-  for (int k = k0 + t; k < k_end; k += kThreads) {
-    v_out[k] = -1;
-    row_out[k] = -1;
+  for (int i = t; i < k_end - k0; i += kThreads) {
+    v_out[k0 + i] = -1;
+    row_out[k0 + i] = -1;
   }
   // the ranges that hold the rows of the tile's first and last slot: the
   // pivots' split, then 32-way rounds down to 32 entries
@@ -260,7 +269,8 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
     int hi = n;
     if (f < kThreads) {
       lo = f * stride;
-      hi = min((f + 1) * stride - 1, n - 1);
+      hi = static_cast<int>(min(static_cast<long long>(f + 1) * stride - 1,
+                                static_cast<long long>(n - 1)));
     }
     warp_narrow(a.offs, k, lo, hi);
     if (lane == 0) s_ub[warp] = warp ? hi : lo;
@@ -337,10 +347,10 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
     // status word: fence then strong store, a release
     fence_acq_rel();
     if (tile == 0) {
-      if (lane == 0) store_relaxed(&scratch->status[0], epoch | kPrefix | agg);
+      if (lane == 0) store_relaxed(scratch.status, epoch | kPrefix | agg);
     } else {
       if (lane == 0) {
-        store_relaxed(&scratch->status[tile], epoch | kAggregate | agg);
+        store_relaxed(scratch.status + tile, epoch | kAggregate | agg);
       }
       // look back over 32 predecessors per round, nearest in lane 0
       for (int top = tile - 1;; top -= 32) {
@@ -348,7 +358,7 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
         unsigned long long st = kPrefix;  // before tile 0: a prefix of 0
         if (idx >= 0) {
           do {
-            st = load_relaxed(&scratch->status[idx]);
+            st = load_relaxed(scratch.status + idx);
           } while ((st & ~((kPrefix << 1) - 1)) != epoch ||
                    (st & (kAggregate | kPrefix)) == 0);
         }
@@ -366,7 +376,7 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
       // this tile's prefix
       fence_acq_rel();
       if (lane == 0) {
-        store_relaxed(&scratch->status[tile], epoch | kPrefix | (excl + agg));
+        store_relaxed(scratch.status + tile, epoch | kPrefix | (excl + agg));
       }
     }
     if (lane == 0) {
@@ -389,11 +399,12 @@ expand_filter_kernel(Args a, Scratch* __restrict__ scratch, int n_tiles,
 }
 
 template <int kItems>
-cudaError_t launch(const Args& a, Scratch* scratch, int* v_out, int* row_out,
-                   int* count_out, cudaStream_t st) {
+cudaError_t launch(const Args& a, Scratch scratch, int status_words,
+                   int* v_out, int* row_out, int* count_out,
+                   cudaStream_t st) {
   const int n_tiles = static_cast<int>(
       repro::blocks_for(a.capacity, kThreads * kItems));
-  if (n_tiles > kMaxTiles) return cudaErrorInvalidValue;
+  if (n_tiles > status_words) return cudaErrorInvalidValue;
   expand_filter_kernel<kItems><<<n_tiles, kThreads, 0, st>>>(
       a, scratch, n_tiles, v_out, row_out, count_out);
   return cudaGetLastError();
@@ -402,15 +413,16 @@ cudaError_t launch(const Args& a, Scratch* scratch, int* v_out, int* row_out,
 }  // namespace
 
 // scratch: scratch_words int64 words kept by the caller for this stream,
-// zero at first (status words, then the ticket word).
+// zero at first: a status word per tile (at least ceil(capacity / 1024),
+// and 256 for capacities below 2^17, whose tiles are smaller), then the
+// ticket word.
 REPRO_EXPORT int repro_expand_filter_compact(
     const void* nbr, int m, const void* bitmap, int n_vertices, int w,
     const void* start, const void* deg, const void* offs, int r_rows,
     const void* mask, const void* bound, int capacity,
     void* v_out, void* row_out,
     void* count_out, void* scratch, int scratch_words, void* stream) {
-  if (capacity <= 0 || capacity > kMaxCapacity || r_rows <= 0 ||
-      static_cast<size_t>(scratch_words) * 8 < sizeof(Scratch)) {
+  if (capacity <= 0 || r_rows <= 0 || scratch_words < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -419,19 +431,21 @@ REPRO_EXPORT int repro_expand_filter_compact(
          static_cast<const int32_t*>(offs), static_cast<const int32_t*>(mask),
          m, n_vertices, w, r_rows, static_cast<const int32_t*>(bound),
          capacity};
-  Scratch* s = static_cast<Scratch*>(scratch);
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  const Scratch s{words, words + scratch_words - 1};
+  const int n_status = scratch_words - 1;
   int* vo = static_cast<int*>(v_out);
   int* ro = static_cast<int*>(row_out);
   int* co = static_cast<int*>(count_out);
   cudaError_t err;
   if (capacity >= kMinBlocks * kThreads * 8) {
-    err = launch<8>(a, s, vo, ro, co, st);
+    err = launch<8>(a, s, n_status, vo, ro, co, st);
   } else if (capacity >= kMinBlocks * kThreads * 4) {
-    err = launch<4>(a, s, vo, ro, co, st);
+    err = launch<4>(a, s, n_status, vo, ro, co, st);
   } else if (capacity >= kMinBlocks * kThreads * 2) {
-    err = launch<2>(a, s, vo, ro, co, st);
+    err = launch<2>(a, s, n_status, vo, ro, co, st);
   } else {
-    err = launch<1>(a, s, vo, ro, co, st);
+    err = launch<1>(a, s, n_status, vo, ro, co, st);
   }
   return static_cast<int>(err);
 }

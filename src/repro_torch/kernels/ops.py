@@ -27,14 +27,17 @@ KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
            "segment_gather")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# capacity bound of the compaction kernel (``ExecOpts.max_cap``); its status
-# buffer holds one word per tile of 1024 slots, then its ticket word
-MAX_CAPACITY = 1 << 22
-_EFC_SCRATCH_WORDS = MAX_CAPACITY // 1024 + 1
+# the compaction kernel writes int32 positions, as the reference's int32
+# tables hold them: its one capacity bound
+_INT32_MAX = 2**31 - 1
+# its look-back status buffer holds a word per tile (1024 slots from
+# capacity 2^17, at most 256 smaller tiles below), then its ticket word; a
+# buffer holds at least this many status words and grows with the calls
+_EFC_MIN_TILES = 4096
 # calls on one buffer before it is zeroed again: the kernel tags status
-# words with the call's epoch modulo 2^39, so no old word is mistaken for
+# words with the call's epoch modulo 2^31, so no old word is mistaken for
 # the current call's
-_EFC_EPOCH_PERIOD = 1 << 38
+_EFC_EPOCH_PERIOD = 1 << 30
 # (device index, stream) -> [status buffer, calls made on it since zeroed]
 _EFC_SCRATCH: dict[tuple[int, int], list] = {}
 
@@ -71,14 +74,15 @@ def _check(name: str, *ts: torch.Tensor, same_len=(), words=None) -> None:
                          f"not match {words[1]} bitmap words")
 
 
-def _launch(name: str, lib: str, *args) -> None:
-    """Launch on the current stream: tensors pass as device pointers, ints
-    as C ints; a refused launch raises."""
+def _launch(name: str, entry: str, *args) -> None:
+    """Launch ``entry`` (a launcher of ``_build.SIGNATURES``) on the current
+    stream, counted as a launch of kernel ``name``: tensors pass as device
+    pointers, ints as C ints; a refused launch raises."""
     from repro_torch.kernels._build import kernel
 
     # (None passes as a null pointer: an absent optional array)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = kernel(lib)(*cargs, torch.cuda.current_stream().cuda_stream)
+    err = kernel(entry)(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
@@ -100,8 +104,19 @@ def edge_exists(nbr, lo, hi, target, n_iters: int = 32):
     return out
 
 
-def tile_membership(a, b):
-    """+INT join: ``out[i, j] = a[i, j] ∈ b[i, :]``, bool [R, TA]."""
+def tile_membership(a, b, iptr=None, probe=None, tb=None):
+    """+INT join: ``out[i, j] = a[i, j] ∈ b[i, :]``, bool [R, TA].
+
+    The range form (``iptr``, ``probe`` and ``tb`` given) builds each row's
+    tile in the same launch, as the executor builds its ``adj_tile``:
+    ``b`` is the flat adjacency ``nbr``, ``a`` the candidates ``v`` [R],
+    and ``out[i] = v[i] >= 0 and v[i] ∈ nbr[lo : min(hi, lo + tb))`` with
+    ``lo, hi = iptr[p], iptr[p + 1]`` and ``p = clamp(probe[i], 0, n - 1)``,
+    ``n = len(iptr) - 1``; bool [R].  ``probe`` may be a strided view (a
+    binding-table column).  See
+    :func:`repro_torch.kernels.ref.tile_membership_ref`."""
+    if iptr is not None:
+        return _tile_range(a, b, iptr, probe, tb)
     if not _on_cuda(a, b):
         return _ref.tile_membership_ref(a, b)
     _check("tile_membership", a, b)
@@ -113,6 +128,31 @@ def tile_membership(a, b):
     if rows and ta:
         _launch("tile_membership", "tile_membership", a, b, out, rows, ta,
                 b.shape[1])
+    return out
+
+
+def _tile_range(v, nbr, iptr, probe, tb):
+    if probe is None or tb is None:
+        raise ValueError("tile_membership: the range form takes iptr, probe "
+                         "and tb")
+    if not _on_cuda(v, nbr, iptr, probe):
+        return _ref.tile_membership_ref(v, nbr, iptr=iptr, probe=probe,
+                                        tb=tb)
+    _check("tile_membership", v, nbr, iptr)
+    if probe.dtype != torch.int32 or probe.ndim != 1 or v.ndim != 1 \
+            or probe.shape != v.shape or iptr.shape[0] < 2 or tb < 0:
+        raise ValueError(f"tile_membership: range form with v "
+                         f"{tuple(v.shape)}, probe {probe.dtype} "
+                         f"{tuple(probe.shape)}, iptr {tuple(iptr.shape)}, "
+                         f"tb {tb}")
+    rows = v.shape[0]
+    out = torch.empty(rows, dtype=torch.bool, device=v.device)
+    if rows and nbr.shape[0]:
+        _launch("tile_membership", "tile_membership_range", nbr,
+                nbr.shape[0], iptr, iptr.shape[0] - 1, probe,
+                probe.stride(0), v, rows, tb, out)
+    elif rows:
+        out.zero_()  # an empty adjacency holds nothing
     return out
 
 
@@ -177,16 +217,17 @@ def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
     _check("expand_filter_compact", nbr, bitmap, start, deg, offs,
            label_mask, bound_id, same_len=(start, deg, offs),
            words=(label_mask, bitmap.shape[1]))
-    if not 0 < capacity <= MAX_CAPACITY:
+    if not 0 < capacity <= _INT32_MAX:
         raise ValueError(f"expand_filter_compact: capacity {capacity} "
-                         f"outside (0, {MAX_CAPACITY}]")
+                         f"outside (0, 2^31 - 1]: the compacted tables hold "
+                         f"int32 positions")
     if offs.shape[0] == 0:
         raise ValueError("expand_filter_compact: no input rows")
     dev = nbr.device
     v_out = torch.empty(capacity, dtype=torch.int32, device=dev)
     row_out = torch.empty(capacity, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = _efc_scratch(dev)
+    scratch = _efc_scratch(dev, max(_EFC_MIN_TILES, -(-capacity // 1024)))
     _launch("expand_filter_compact", "expand_filter", nbr,
             max(1, nbr.shape[0]), bitmap, bitmap.shape[0],
             bitmap.shape[1], start, deg, offs,
@@ -195,17 +236,20 @@ def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
     return v_out, row_out, count
 
 
-def _efc_scratch(dev: torch.device) -> torch.Tensor:
-    """The compaction kernel's look-back status words and ticket word for
-    the current stream of ``dev``, so calls on one stream share it and
-    calls on two streams never do.  It is zeroed when made and then once
-    every ``_EFC_EPOCH_PERIOD`` calls; in between, each call moves the
-    epoch kept in it on by one, on the device."""
+def _efc_scratch(dev: torch.device, tiles: int) -> torch.Tensor:
+    """The compaction kernel's look-back status words (at least ``tiles``)
+    and ticket word for the current stream of ``dev``, so calls on one
+    stream share it and calls on two streams never do.  It is zeroed when
+    made, made anew (zeroed, larger) when a call needs more status words,
+    and zeroed again once every ``_EFC_EPOCH_PERIOD`` calls; in between,
+    each call moves the epoch kept in it on by one, on the device.  A
+    buffer left for a larger one is freed into the caching allocator, which
+    hands it out again only after this stream's earlier work."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     entry = _EFC_SCRATCH.get(key)
-    if entry is None:
+    if entry is None or entry[0].shape[0] < tiles + 1:
         entry = _EFC_SCRATCH[key] = [
-            torch.zeros(_EFC_SCRATCH_WORDS, dtype=torch.int64, device=dev), 0]
+            torch.zeros(tiles + 1, dtype=torch.int64, device=dev), 0]
     elif entry[1] >= _EFC_EPOCH_PERIOD:
         entry[0].zero_()
         entry[1] = 0
@@ -295,10 +339,9 @@ def delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
 _GATHER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _gather_launch(table, idx, weights, offsets, k: int, s: int):
-    """One ``segment_gather`` launch over ``s`` segments: segment ``i``'s
-    entries are ``idx[offsets[i]:offsets[i+1]]`` (ragged) or
-    ``idx[i*k:(i+1)*k]`` (``offsets`` None, the fixed layout)."""
+def _gather_out(table, weights, s: int):
+    """Check the table, cast the weights to its dtype, and allocate the
+    ``[s, D]`` output of a ``segment_gather`` launch."""
     if table.ndim != 2 or table.dtype not in _GATHER_DTYPES \
             or not table.is_contiguous():
         raise ValueError(f"segment_gather: expected a contiguous [V, D] "
@@ -310,11 +353,7 @@ def _gather_launch(table, idx, weights, offsets, k: int, s: int):
         weights = weights.to(table.dtype).contiguous()
     out = torch.empty((s, table.shape[1]), dtype=table.dtype,
                       device=table.device)
-    if s and table.shape[1]:
-        _launch("segment_gather", "segment_gather", table, table.shape[0],
-                table.shape[1], _GATHER_DTYPES[table.dtype], idx, weights,
-                offsets, k, s, out)
-    return out
+    return weights, out
 
 
 def segment_gather_fixed(table, idx, weights=None):
@@ -332,7 +371,12 @@ def segment_gather_fixed(table, idx, weights=None):
         raise ValueError(f"segment_gather_fixed: idx {tuple(idx.shape)} "
                          f"must be [S, K] and weights of the same shape")
     s, k = idx.shape
-    return _gather_launch(table, idx, weights, None, k, s)
+    weights, out = _gather_out(table, weights, s)
+    if s and table.shape[1]:
+        _launch("segment_gather", "segment_gather", table, table.shape[0],
+                table.shape[1], _GATHER_DTYPES[table.dtype], idx, weights, k,
+                s, out)
+    return out
 
 
 def segment_gather_sum(table, indices, segments, num_segments, weights=None):
@@ -342,11 +386,14 @@ def segment_gather_sum(table, indices, segments, num_segments, weights=None):
     lies outside ``[0, num_segments)`` is dropped; see
     :func:`repro_torch.kernels.ref.segment_gather_sum_ref`).
 
-    On CUDA the entries are put in segment order on the device first (a
-    stable sort by segment, dropped entries last, and ``searchsorted``
-    segment offsets), so each segment's run keeps its entries' order; the
-    gather-sum is then one ``segment_gather`` launch.  There is no hotness
-    or table-size bound."""
+    On CUDA the segment keys are sorted on the device (a stable sort, so
+    each segment's run keeps its entries' order; keys below 0 sort before
+    segment 0's run and keys from ``num_segments`` on after the last run,
+    so no run holds a dropped entry), and ``searchsorted`` finds each
+    segment's run in the permutation.  The gather-sum is then one
+    ``segment_gather`` launch, which reads the permutation itself
+    (:func:`_gather_sum_launch`).  There is no hotness or table-size
+    bound."""
     ts = (table, indices, segments) + (() if weights is None else (weights,))
     if not _on_cuda(*ts):
         return _ref.segment_gather_sum_ref(table, indices, segments,
@@ -356,14 +403,26 @@ def segment_gather_sum(table, indices, segments, num_segments, weights=None):
     if weights is not None and weights.shape != indices.shape:
         raise ValueError(f"segment_gather_sum: weights {tuple(weights.shape)}"
                          f" do not match {tuple(indices.shape)} entries")
-    v = table.shape[0]
-    idx = torch.where(indices < 0, indices + v, indices).clamp_(
-        0, max(v, 1) - 1)
-    inside = (segments >= 0) & (segments < num_segments)
-    seg, order = torch.sort(torch.where(inside, segments, num_segments),
-                            stable=True)
+    seg, order = torch.sort(segments, stable=True)
     offsets = torch.searchsorted(
         seg, torch.arange(num_segments + 1, dtype=torch.int32,
                           device=seg.device), out_int32=True)
-    w = None if weights is None else weights[order]
-    return _gather_launch(table, idx[order], w, offsets, 0, num_segments)
+    return _gather_sum_launch(table, indices, weights, order, offsets,
+                              num_segments)
+
+
+def _gather_sum_launch(table, indices, weights, order, offsets, s: int):
+    """The ragged ``segment_gather`` launch: segment ``i`` sums the entries
+    at positions ``order[offsets[i]:offsets[i+1]]`` (int64 positions into
+    ``indices`` and ``weights``, as ``torch.sort`` returns them), in that
+    order.  Rows are read as 16-byte vectors where ``D`` and the table's
+    base allow, else as 4-byte columns; the sums are the same."""
+    weights, out = _gather_out(table, weights, s)
+    d = table.shape[1]
+    if s and d:
+        vec = int(table.data_ptr() % 16 == 0
+                  and d % (16 // table.element_size()) == 0)
+        _launch("segment_gather", "segment_gather_sum", table,
+                table.shape[0], d, _GATHER_DTYPES[table.dtype], vec, indices,
+                weights, order, offsets, s, out)
+    return out

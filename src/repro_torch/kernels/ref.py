@@ -32,11 +32,33 @@ def edge_exists_ref(nbr: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return found & (lo0 < hi0)
 
 
-def tile_membership_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def tile_membership_ref(a: torch.Tensor, b: torch.Tensor,
+                        iptr: torch.Tensor | None = None,
+                        probe: torch.Tensor | None = None,
+                        tb: int | None = None) -> torch.Tensor:
     """Per-row compare-all membership ``out[i, j] = a[i, j] ∈ b[i, :]``;
-    negative entries of ``a`` (padding) never match."""
-    eq = a[:, :, None] == b[:, None, :]
-    return torch.any(eq & (a[:, :, None] >= 0), dim=-1)
+    negative entries of ``a`` (padding) never match.
+
+    The range form (``iptr``, ``probe``, ``tb``): ``b`` is the flat
+    adjacency ``nbr`` and ``a`` the candidates ``v`` [R]; row i's tile is
+    built as the executor builds its ``adj_tile`` (``p = clamp(probe[i], 0,
+    n-1)`` with ``n = len(iptr) - 1``, positions ``iptr[p] + j`` for ``j <
+    tb`` below ``iptr[p + 1]``, each read at ``clamp(pos, 0, M-1)``, the
+    rest ``-2``), then tested; bool [R].  An empty ``nbr`` holds
+    nothing."""
+    if iptr is None:
+        eq = a[:, :, None] == b[:, None, :]
+        return torch.any(eq & (a[:, :, None] >= 0), dim=-1)
+    if b.shape[0] == 0:
+        return torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+    psafe = probe.clamp(0, iptr.shape[0] - 2).long()
+    lo = iptr[psafe]
+    hi = iptr[psafe + 1]
+    pos = lo[:, None] + torch.arange(tb, dtype=lo.dtype,
+                                     device=lo.device)[None, :]
+    tile = torch.where(pos < hi[:, None],
+                       b[pos.clamp(0, b.shape[0] - 1).long()], -2)
+    return tile_membership_ref(a[:, None], tile)[:, 0]
 
 
 def bitmap_superset_ref(bitmap: torch.Tensor, required: torch.Tensor,

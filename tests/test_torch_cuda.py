@@ -19,12 +19,14 @@ from torch_cases import (BITMAP_EDGE_CASES, DELTA_CASES,  # noqa: E402
                          DELTA_FIELDS, DELTA_ROW_CASES,
                          EFC_BACK_TO_BACK_CAPS, EFC_CASES, EFC_EDGE_CASES,
                          EFC_STREAM_SETS, GATHER_FIXED_CASES,
-                         GATHER_SUM_CASES, SIG_EDGE_CASES, bitmap_ids_inputs,
+                         GATHER_RAGGED_EDGE_CASES, GATHER_SUM_CASES,
+                         SIG_EDGE_CASES, TILE_RANGE_CASES, bitmap_ids_inputs,
                          bitmap_inputs, delta_inputs, delta_row_inputs,
                          edge_inputs, efc_edge_inputs, efc_inputs,
                          efc_tickets_settled, gather_close,
-                         gather_fixed_inputs, gather_sum_inputs, same,
-                         sig_inputs, tile_inputs, tt)
+                         gather_fixed_inputs, gather_ragged_edge_inputs,
+                         gather_sum_inputs, same, sig_inputs, tile_inputs,
+                         tile_range_inputs, tt)
 
 
 @pytest.fixture
@@ -51,6 +53,57 @@ def test_cuda_tile_membership(cuda, r, ta, tb):
     got = ops.tile_membership(tt(a, cuda), tt(b, cuda))
     torch.cuda.synchronize()
     same(got, ref.tile_membership_ref(tt(a, cuda), tt(b, cuda)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,ta,tb,offset", [
+    (5000, 1, 4, 0), (5000, 1, 8, 0), (5000, 1, 16, 0), (32768, 1, 32, 0),
+    (5000, 1, 64, 0), (5000, 1, 128, 0),  # 16-byte rows
+    (5000, 1, 32, 1), (5000, 1, 12, 0), (5000, 1, 129, 0), (300, 1, 0, 0),
+    (3001, 3, 8, 0), (1000, 64, 8, 0),  # staged results, several per row
+    (1000, 65, 8, 0), (777, 300, 16, 2)])  # results stored in place
+def test_cuda_tile_membership_contract_forms(cuda, rows, ta, tb, offset):
+    """The contract form's load paths (16-byte rows where tb = 4G and b is
+    aligned, 4-byte words otherwise) and result stores (staged through
+    shared memory, or in place for wide TA), one launch each."""
+    a, b = tile_inputs(rows, ta, tb, rows + ta + tb)
+    ta_, tb_ = tt(a, cuda), _offset_view(b, cuda, offset)
+    ops.reset_launches()
+    got = ops.tile_membership(ta_, tb_)
+    torch.cuda.synchronize()
+    assert ops.launches["tile_membership"] == 1
+    same(got, ref.tile_membership_ref(ta_, tb_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILE_RANGE_CASES + [(1 << 20, 200_000, 32,
+                                                      32)])
+@pytest.mark.parametrize("column", [True, False])
+def test_cuda_tile_membership_range_form(cuda, case, column):
+    """The range form on probes out of range, degree 0, degree = tb and
+    past it, every executor tb, negative candidates, a strided probe column
+    (or a contiguous probe, as a self-loop passes v): one launch, bit-equal
+    to the plain version's tile build and test."""
+    rows, n, max_deg, tb = case
+    nbr, iptr, table, v = tile_range_inputs(rows, n, max_deg, tb, rows + tb)
+    ttable = tt(table, cuda)
+    probe = ttable[:, 1] if column else ttable[:, 1].contiguous()
+    args = (tt(v, cuda), tt(nbr, cuda))
+    kw = dict(iptr=tt(iptr, cuda), probe=probe, tb=tb)
+    ops.reset_launches()
+    got = ops.tile_membership(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["tile_membership"] == 1
+    same(got, ref.tile_membership_ref(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_tile_membership_range_form_empty_adjacency(cuda):
+    v = tt(np.array([0, 3, -1], np.int32), cuda)
+    got = ops.tile_membership(v, tt(np.zeros(0, np.int32), cuda),
+                              iptr=tt(np.zeros(4, np.int32), cuda),
+                              probe=v, tb=8)
+    same(got, np.zeros(3, bool))
 
 
 @pytest.mark.cuda
@@ -205,6 +258,30 @@ def test_cuda_expand_filter_compact_edge_cases(cuda, kind, cap):
     got = ops.expand_filter_compact(*targs, bid_t, cap)
     torch.cuda.synchronize()
     assert ops.launches["expand_filter_compact"] == 1
+    want = ref.expand_filter_compact_ref(*targs, bid_t, cap)
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
+    assert _efc_scratch_settled()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cap", [("all_survive", 1 << 23),
+                                      ("all_survive", 1 << 24),
+                                      ("last_tile_only", 1 << 23),
+                                      ("total_plus_1", 1 << 23)])
+def test_cuda_expand_filter_compact_large_capacity(cuda, kind, cap):
+    """Capacities above 2^22 (status buffers of 8192 and 16384 tiles, grown
+    from the smaller one the calls before left), with more than 2^22
+    survivors where every slot survives: one launch, bit-equal."""
+    args, bid = efc_edge_inputs(kind, cap)
+    targs = [tt(a, cuda) for a in args]
+    bid_t = tt(np.int32(bid), cuda)
+    ops.reset_launches()
+    got = ops.expand_filter_compact(*targs, bid_t, cap)
+    torch.cuda.synchronize()
+    assert ops.launches["expand_filter_compact"] == 1
+    if kind == "all_survive":
+        assert int(got[2]) == cap
     want = ref.expand_filter_compact_ref(*targs, bid_t, cap)
     for g_, w_ in zip(got, want):
         same(g_, w_)
@@ -478,6 +555,59 @@ def test_cuda_segment_gather_sum(cuda, v, d, e, s, weighted, dtype):
     torch.cuda.synchronize()
     want = ref.segment_gather_sum_ref(table, idx, seg, s, w)
     gather_close(got, want.float().cpu().numpy(), dtype, -(-e // s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,e,s,kind,dtype,offset",
+                         GATHER_RAGGED_EDGE_CASES + [
+                             (50_000, 100, 2_000_000, 80_000, "mixed",
+                              "float32", 0),
+                             (50_000, 100, 2_000_000, 80_000, "mixed",
+                              "float32", 1)])
+def test_cuda_segment_gather_sum_edge_cases(cuda, v, d, e, s, kind, dtype,
+                                            offset):
+    """The ragged form's hard cases on the 16-byte and 4-byte load paths:
+    one launch, within tolerance of the plain version, and bit-equal to
+    the same call on the other load path (an aligned copy of an unaligned
+    table, or an unaligned copy of an aligned one)."""
+    dt = getattr(torch, dtype)
+    table, idx, seg, w = gather_ragged_edge_inputs(v, d, e, s, kind, e + d)
+    tw, tidx, tseg = torch.from_numpy(w).to(cuda, dt), tt(idx, cuda), \
+        tt(seg, cuda)
+
+    def placed(off):
+        flat = torch.zeros(table.size + off, dtype=dt, device=cuda)
+        flat[off:] = torch.from_numpy(table).to(cuda, dt).reshape(-1)
+        return flat[off:].view(table.shape)
+
+    t_table = placed(offset)
+    ops.reset_launches()
+    got = ops.segment_gather_sum(t_table, tidx, tseg, s, tw)
+    torch.cuda.synchronize()
+    assert ops.launches["segment_gather"] == 1
+    want = ref.segment_gather_sum_ref(t_table, tidx, tseg, s, tw)
+    gather_close(got, want.float().cpu().numpy(), dtype, max(1, -(-e // s)))
+    other = ops.segment_gather_sum(placed(1 if offset == 0 else 0), tidx,
+                                   tseg, s, tw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, other)
+    if kind != "mixed":
+        assert not got.float().any()
+
+
+@pytest.mark.cuda
+def test_cuda_segment_gather_sum_repeats_bits(cuda):
+    """Two calls on the same inputs (runs of about 40 entries, some past
+    150) give the same bits: each segment sums in entry order."""
+    table, idx, seg, w = gather_sum_inputs(20_000, 100, 1_000_000, 25_000,
+                                           True, seed=5)
+    seg[:200] = 7
+    args = (torch.from_numpy(table).to(cuda), tt(idx, cuda), tt(seg, cuda),
+            25_000, torch.from_numpy(w).to(cuda))
+    first = ops.segment_gather_sum(*args)
+    second = ops.segment_gather_sum(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -28,11 +28,13 @@ from repro.kernels.segment_gather import (  # noqa: E402
 from torch_cases import (BITMAP_EDGE_CASES, DELTA_CASES,  # noqa: E402
                          DELTA_FIELDS, DELTA_ROW_CASES, EFC_CASES,
                          EFC_EDGE_CASES, GATHER_FIXED_CASES, GATHER_SUM_CASES,
-                         SIG_EDGE_CASES, bitmap_ids_inputs, bitmap_inputs,
+                         GATHER_RAGGED_EDGE_CASES, SIG_EDGE_CASES,
+                         TILE_RANGE_CASES, bitmap_ids_inputs, bitmap_inputs,
                          delta_inputs, delta_row_inputs, edge_inputs,
                          efc_edge_inputs, efc_inputs, gather_close,
-                         gather_fixed_inputs, gather_sum_inputs, same,
-                         sig_inputs, tile_inputs, tt)
+                         gather_fixed_inputs, gather_ragged_edge_inputs,
+                         gather_sum_inputs, same, sig_inputs, tile_inputs,
+                         tile_range_inputs, tile_range_tile, tt)
 
 
 # ---------------------------------------------- plain version vs reference
@@ -60,6 +62,36 @@ def test_tile_membership(r, ta, tb):
     got = ops.tile_membership(tt(a), tt(b))
     same(got, want)
     same(got, pallas)
+
+
+@pytest.mark.parametrize("rows,n,max_deg,tb", TILE_RANGE_CASES)
+def test_tile_membership_range_form(rows, n, max_deg, tb):
+    """The range form (the engine's +INT call) equals the TPU kernel in
+    interpret mode on the tile built as the reference executor builds it
+    (``repro/core/exec.py``'s ``adj_tile``): probes out of range, degree 0
+    and degree = tb, degrees past tb, negative candidates, a strided probe
+    column."""
+    nbr, iptr, table, v = tile_range_inputs(rows, n, max_deg, tb, rows + tb)
+    tile = jnp.asarray(tile_range_tile(nbr, iptr, table[:, 1], tb))
+    pallas = tile_membership_pallas(jnp.asarray(v)[:, None], tile,
+                                    interpret=True, row_tile=4096)
+    ttable = tt(table)
+    got = ops.tile_membership(tt(v), tt(nbr), iptr=tt(iptr),
+                              probe=ttable[:, 1], tb=tb)
+    same(got, pallas[:, 0])
+    same(got, jref.tile_membership_ref(jnp.asarray(v)[:, None], tile)[:, 0])
+    if rows > 100:
+        assert got.any() and not got.all()
+
+
+def test_tile_membership_range_form_empty_adjacency():
+    """An empty adjacency holds nothing (the reference reads its clamped
+    gather as -2 tiles)."""
+    got = ops.tile_membership(tt(np.array([0, 3, -1], np.int32)),
+                              tt(np.zeros(0, np.int32)),
+                              iptr=tt(np.zeros(4, np.int32)),
+                              probe=tt(np.array([0, 5, -2], np.int32)), tb=8)
+    same(got, np.zeros(3, bool))
 
 
 @pytest.mark.parametrize("b,w", [(1, 1), (100, 1), (257, 2), (64, 5)])
@@ -175,6 +207,28 @@ def test_expand_filter_compact_edge_cases(kind, cap):
         assert count == expect[kind]
     else:
         assert count > 0
+
+
+def test_expand_filter_compact_above_2_22():
+    """A capacity of 2^23 with more than 2^22 survivors (the capacity the
+    compaction kernel once refused) against the reference's oracle."""
+    cap = 1 << 23
+    rng = np.random.default_rng(23)
+    deg = np.full(cap // 4 + 5, 4, np.int32)
+    nbr = rng.integers(0, 64, size=int(deg.sum())).astype(np.int32)
+    offs = (np.cumsum(deg) - deg).astype(np.int32)
+    bitmap = rng.integers(0, 2**32, size=(64, 1),
+                          dtype=np.uint64).astype(np.uint32)
+    bitmap |= 1
+    bitmap[::8] = 0  # an eighth of the ids fail the mask
+    mask = np.array([1], np.uint32)
+    args = (nbr, bitmap, offs, deg, offs, mask)
+    want = jref.expand_filter_compact_ref(*map(jnp.asarray, args),
+                                          jnp.int32(-1), cap)
+    got = ops.expand_filter_compact(*map(tt, args), tt(np.int32(-1)), cap)
+    assert int(got[2]) > 1 << 22
+    for g_, w_ in zip(got, want):
+        same(g_, w_)
 
 
 def test_expand_filter_compact_bound_filters_everything_else():
@@ -370,6 +424,36 @@ def test_segment_gather_sum_semantics(v, d, e, s, weighted, dtype):
         weights=None if j_w is None else j_w[jnp.asarray(sel)],
         interpret=True)
     gather_close(got, np.asarray(want.astype(jnp.float32)), dtype, hot)
+
+
+@pytest.mark.parametrize("v,d,e,s,kind,dtype,offset",
+                         GATHER_RAGGED_EDGE_CASES)
+def test_segment_gather_sum_edge_cases(v, d, e, s, kind, dtype, offset):
+    """The ragged form's hard cases (negative ids, segments outside [0, S),
+    empty segments, every entry dropped, E = 0, d of 1, 33, 64, 100 and
+    300, a table view off its buffer's start) against the reference's
+    oracle."""
+    dt = getattr(torch, dtype)
+    table, idx, seg, w = gather_ragged_edge_inputs(v, d, e, s, kind, e + d)
+    flat = torch.zeros(table.size + offset, dtype=dt)
+    flat[offset:] = torch.from_numpy(table).to(dt).reshape(-1)
+    t_table = flat[offset:].view(table.shape)
+    t_w = torch.from_numpy(w).to(dt)
+    j_table = jnp.asarray(t_table.float().numpy())
+    j_w = jnp.asarray(t_w.float().numpy())
+    if dt == torch.bfloat16:
+        # products in bfloat16 as the port takes them, summed in float32
+        j_table, j_w = j_table.astype(jnp.bfloat16), j_w.astype(jnp.bfloat16)
+    got = ops.segment_gather_sum(t_table, tt(idx), tt(seg), s, weights=t_w)
+    assert got.dtype == dt and tuple(got.shape) == (s, d)
+    want = jref.segment_gather_sum_ref(j_table.astype(jnp.float32)
+                                       if dt == torch.float32 else j_table,
+                                       jnp.asarray(idx), jnp.asarray(seg), s,
+                                       weights=j_w)
+    gather_close(got, np.asarray(want.astype(jnp.float32)), dtype,
+                 max(1, -(-e // s)))
+    if kind != "mixed":
+        assert not got.float().any()
 
 
 def test_segment_gather_sum_index_rules():

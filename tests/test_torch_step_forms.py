@@ -1,4 +1,5 @@
-"""The executor's filters and merged steps through the kernels' fused forms.
+"""The executor's filters, merged steps and +INT joins through the kernels'
+fused forms.
 
 On a live-store snapshot every step whose direction carries a delta calls
 ``ops.delta_merge`` with the row-level fields and the slots' rows
@@ -8,7 +9,10 @@ first.  Both packages build a store from the same triples and apply the
 same inserts and deletes; the reference plans each query on its snapshot,
 ``repro_torch.convert`` carries the plan across, and the port's chunk
 program (``Executor.run``) and batch program (``Executor.run_batch``) must
-return the reference executor's counts, rows and stats.
+return the reference executor's counts, rows and stats.  On a static graph
+every +INT non-tree check calls ``ops.tile_membership`` in its range form
+(``iptr=``, ``probe=``, ``tb=``), which builds the adjacency tile itself,
+and is held to the reference executor the same way.
 """
 
 import re
@@ -29,7 +33,8 @@ from repro.rdf.triples import TripleStore as RTripleStore  # noqa: E402
 from repro.rdf.workloads import LUBM_QUERIES  # noqa: E402
 from repro.serve.fingerprint import parameterize_query as ref_pq  # noqa: E402
 from repro.store import VersionedStore as RStore  # noqa: E402
-from repro_torch.convert import plan_fields, plan_from_fields  # noqa: E402
+from repro_torch.convert import (graph_fields, graph_from_arrays,  # noqa: E402
+                                 plan_fields, plan_from_fields)
 from repro_torch.core import ExecOpts, Executor  # noqa: E402
 from repro_torch.rdf.transform import type_aware_transform  # noqa: E402
 from repro_torch.rdf.triples import TripleStore  # noqa: E402
@@ -40,6 +45,16 @@ TMPL_COURSE = """SELECT ?x ?y WHERE {{
   ?x rdf:type ub:GraduateStudent .
   ?x ub:takesCourse {c} .
   ?x ub:advisor ?y .
+}}"""
+# LUBM Q9 with a hoisted constant: the batch joins a non-tree edge (+INT)
+TMPL_CYCLE_Q9 = """SELECT ?x ?y ?z WHERE {{
+  ?x rdf:type ub:Student .
+  ?y rdf:type ub:Faculty .
+  ?z rdf:type ub:Course .
+  ?x ub:advisor ?y .
+  ?y ub:teacherOf ?z .
+  ?x ub:takesCourse ?z .
+  ?y ub:worksFor {d} .
 }}"""
 STATS = ("step_rows", "step_kept", "step_kernels", "chunks", "resumes")
 
@@ -145,3 +160,59 @@ def test_batch_program_fused_forms(snapshots, forms, collect):
     assert any(r.stats.get("batched") for r in got)
     assert any(r.count for r in got)
     _fused_forms_only(forms)
+
+
+@pytest.fixture(scope="module")
+def static_world():
+    """The reference's static LUBM graph and engine, and the port's copy of
+    the graph."""
+    rg, rmaps = r_transform(
+        rgen.generate_lubm(scale=1, seed=0, density=0.35).finalize())
+    return rg, RefEngine(rg, rmaps), graph_from_arrays(graph_fields(rg))
+
+
+@pytest.fixture
+def tile_forms(monkeypatch):
+    """Records, per ``tile_membership`` call, whether it took the range
+    form."""
+    seen = []
+    orig = texec.kops.tile_membership
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("iptr") is not None)
+        return orig(*args, **kwargs)
+    monkeypatch.setattr(texec.kops, "tile_membership", spy)
+    return seen
+
+
+@pytest.mark.parametrize("qn", ["Q2", "Q9"])
+def test_chunk_program_int_range_form(static_world, tile_forms, qn):
+    rg, ref, g = static_world
+    compiled, _ = ref.compile(LUBM_QUERIES[qn])
+    for br in compiled.branches:
+        plan = plan_from_fields(plan_fields(br.plan))
+        got = Executor(g, ExecOpts(), device="cpu").run(plan)
+        want = RefExecutor(rg, RefOpts()).run(br.plan)
+        _same(got, want)
+        assert got.count
+    assert tile_forms and all(tile_forms)
+
+
+@pytest.mark.parametrize("collect", ["bindings", "count"])
+def test_batch_program_int_range_form(static_world, tile_forms, collect):
+    rg, ref, g = static_world
+    terms = ref.maps.dict.terms.to_str
+    depts = [t for t in terms if re.match(r"ub:Dept\d", t)][:5]
+    rpqs = [ref_pq(TMPL_CYCLE_Q9.format(d=d)) for d in depts]
+    rplan = ref.compile_param(rpqs[0]).plan
+    mat = np.stack([ref.resolve_params(pq.consts) for pq in rpqs])
+    plan = plan_from_fields(plan_fields(rplan))
+    got = Executor(g, ExecOpts(), device="cpu").run_batch(plan, mat,
+                                                          collect=collect)
+    want = RefExecutor(rg, RefOpts()).run_batch(rplan, mat, collect=collect)
+    assert len(got) == len(want) == len(depts)
+    for g_, w_ in zip(got, want):
+        _same(g_, w_)
+    assert any(r.stats.get("batched") for r in got)
+    assert any(r.count for r in got)
+    assert tile_forms and all(tile_forms)

@@ -45,6 +45,65 @@ def tile_inputs(r, ta, tb, seed):
     return a, b
 
 
+# tile_membership's range form: (rows, n, max_deg, tb).  Degrees run from 0
+# to max_deg (every fifth row 0, row 1 exactly max_deg), probes lie in
+# [-3, n + 3) so some clamp, and some candidates are negative.  Cases: each
+# tb of the executor (8 to 128) with degrees up to tb; degrees past tb
+# (the tile cuts the range at lo + tb); tb that is no power of two or
+# needs more than 4 words a lane; one row; a main-path size.
+TILE_RANGE_CASES = [
+    (1, 1, 0, 8),
+    (7, 3, 8, 8),
+    (1000, 300, 8, 8),
+    (1000, 300, 16, 16),
+    (1000, 300, 32, 32),
+    (1000, 300, 64, 64),
+    (1000, 300, 128, 128),
+    (500, 100, 40, 16),
+    (300, 50, 12, 12),
+    (300, 50, 200, 256),
+    (33_000, 5000, 32, 32),
+]
+
+
+def tile_range_inputs(rows, n, max_deg, tb, seed):
+    """``(nbr, iptr, table, v)`` for the range form: a CSR of ``n`` rows
+    (each row's ids sorted, three words of padding past its end), a
+    ``[rows, 3]`` binding table whose column 1 is the probe (a strided
+    view), and candidates ``v``: half drawn from the probe's adjacency
+    (hits, some past ``lo + tb``), the rest random or negative."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, max_deg + 1, size=n)
+    deg[::5] = 0
+    if n > 1:
+        deg[1] = max_deg
+    iptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nbr = np.concatenate(
+        [np.sort(rng.integers(0, 400, size=int(d))) for d in deg]
+        + [rng.integers(0, 400, size=3)]).astype(np.int32)
+    table = rng.integers(-1, 400, size=(rows, 3)).astype(np.int32)
+    probe = rng.integers(-3, n + 3, size=rows)
+    table[:, 1] = probe
+    p = np.clip(probe, 0, n - 1)
+    lo, hi = iptr[p], iptr[p + 1]
+    pick = lo + rng.integers(0, np.maximum(hi - lo, 1))
+    v = np.where((rng.random(rows) < 0.5) & (hi > lo), nbr[pick],
+                 rng.integers(-40, 400, size=rows)).astype(np.int32)
+    return nbr, iptr, table, v
+
+
+def tile_range_tile(nbr, iptr, probe, tb):
+    """The executor's ``adj_tile`` for the range form (numpy, as
+    ``repro/core/exec.py`` builds it): ``int32 [rows, tb]``, ``-2`` past
+    each row's range."""
+    p = np.clip(probe, 0, iptr.shape[0] - 2)
+    lo, hi = iptr[p], iptr[p + 1]
+    pos = lo[:, None] + np.arange(tb, dtype=np.int32)[None, :]
+    return np.where(pos < hi[:, None],
+                    nbr[np.clip(pos, 0, nbr.shape[0] - 1)], -2).astype(
+                        np.int32)
+
+
 def bitmap_inputs(b, w, seed):
     rng = np.random.default_rng(seed)
     bm = rng.integers(0, 2**32, size=(b, w), dtype=np.uint64).astype(np.uint32)
@@ -174,9 +233,9 @@ EFC_BACK_TO_BACK_CAPS = np.random.default_rng(7).choice(
 
 def efc_tickets_settled(ops) -> bool:
     """Between calls, each look-back buffer's ticket word (the last word:
-    24 bits of tickets under the call epoch) has handed out no ticket of a
+    32 bits of tickets under the call epoch) has handed out no ticket of a
     new call, and its epoch counts the calls made on the buffer."""
-    return all(int(buf[-1]) == calls << 24
+    return all(int(buf[-1]) == calls << 32
                for buf, calls in ops._EFC_SCRATCH.values())
 
 
@@ -320,6 +379,35 @@ GATHER_SUM_CASES = [
     (60, 100, 3000, 20, True, "float32"),  # runs of ~150
     (60, 64, 3000, 20, True, "bfloat16"),
 ]
+
+
+# the ragged form's hard cases: (v, d, e, s, kind, dtype, offset).  kind:
+# "mixed" (negative indices, segments outside [0, s), empty segments),
+# "dropped" (every segment outside [0, s)), "empty" (E = 0); offset > 0
+# puts the table at an unaligned base (4-byte columns); d = 100 (float32)
+# and 64 (both dtypes) take 16-byte rows where aligned, d = 1 and 33 not.
+GATHER_RAGGED_EDGE_CASES = [
+    (30, 1, 500, 40, "mixed", "float32", 0),
+    (30, 33, 500, 40, "mixed", "float32", 0),
+    (30, 100, 500, 40, "mixed", "float32", 0),
+    (30, 100, 500, 40, "mixed", "float32", 1),
+    (30, 64, 500, 40, "mixed", "bfloat16", 0),
+    (30, 100, 500, 40, "mixed", "bfloat16", 0),
+    (30, 64, 500, 40, "mixed", "bfloat16", 3),
+    (30, 100, 300, 20, "dropped", "float32", 0),
+    (30, 100, 0, 20, "empty", "float32", 0),
+    (30, 300, 2000, 50, "mixed", "float32", 0),
+]
+
+
+def gather_ragged_edge_inputs(v, d, e, s, kind, seed):
+    """``(table, indices, segments, weights)`` of one
+    ``GATHER_RAGGED_EDGE_CASES`` case (weights on every case)."""
+    table, idx, seg, w = gather_sum_inputs(v, d, e, s, True, seed)
+    if kind == "dropped":
+        seg = np.where(np.arange(e) % 2 == 0, -1 - np.abs(seg),
+                       s + np.abs(seg)).astype(np.int32)
+    return table, idx, seg, w
 
 
 def gather_fixed_inputs(v, d, s, k, weighted, seed):

@@ -19,13 +19,21 @@ flushed and the host given a head start before each):
   A call that used ``ids=`` (``bitmap_superset``) or ``row=``
   (``delta_merge``) is timed in this form on its inputs gathered
   beforehand;
-* for those two kernels, the step segment the main path runs
-  (``segment_ms``, ``segment_host_ms``): in a tree whose wrapper takes
-  ``ids`` / ``row``, the one call; in a tree whose wrapper does not, the
-  gathers the engine made before the call and then the call, as that
-  tree's engine ran them (``segment_form``).
+* for those kernels and ``tile_membership`` (whose range form, ``iptr=``,
+  builds the +INT check's adjacency tile itself), the step segment the
+  main path runs (``segment_ms``, ``segment_host_ms``): in a tree whose
+  wrapper takes ``ids`` / ``row`` / ``iptr``, the one call; in a tree whose
+  wrapper does not, the gathers or the tile build the engine made before
+  the call and then the call, as that tree's engine ran them
+  (``segment_form``).
 
-It first times one launch that does almost nothing (``launch_floor_ms``).
+It first times one launch that does almost nothing (``launch_floor_ms``),
+and last ``segment_gather`` at ``chip_smoke.py``'s users' shapes (inputs
+from ``gather_inputs``, seed 0): the fixed call at ``RM2`` (``ms``), and
+the ragged ``segment_gather_sum`` call at ``OGB`` through its wrapper
+(``ms``) and as that tree's kernel alone on the sorted keys
+(``kernel_ms``); each with a SHA-256 digest of the output's bytes
+(``digest``), so two trees' outputs can be compared bit for bit.
 ``--queries SCALE`` also counts, with ``torch.profiler``, the CUDA kernels
 of one warm Q2 and Q9 of that tree's engine on LUBM at SCALE universities,
 static and on a live snapshot (``chip_smoke.py``'s base split, every insert
@@ -39,6 +47,7 @@ timed call is appended to ``--out``.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import subprocess
@@ -92,6 +101,50 @@ def query_profiles(torch, scale: int) -> dict:
     return out
 
 
+def digest(torch, out) -> str:
+    torch.cuda.synchronize()
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def gather_calls(torch, ops) -> dict:
+    """``segment_gather`` at its users' shapes: the fixed call at ``RM2``
+    (device time, digest) and the ragged call at ``OGB`` (wrapper and
+    kernel device times, digest).  A tree whose wrapper gathers the sorted
+    ids and weights before its kernel (``_gather_launch``) has them
+    gathered for its kernel alone; a tree whose kernel reads the
+    permutation (``_gather_sum_launch``) is given it."""
+    from chip_smoke import OGB, RM2, gather_inputs, time_ms
+
+    inputs = gather_inputs(torch)
+    table, idx, w = inputs.pop("fixed")
+    fixed = {"shape": RM2,
+             "digest": digest(torch, ops.segment_gather_fixed(table, idx, w)),
+             "ms": time_ms(torch, lambda: ops.segment_gather_fixed(table, idx,
+                                                                   w))}
+    del table, idx, w
+    feat, src, dst, ew = inputs.pop("ragged")
+    n = OGB["nodes"]
+    out_digest = digest(torch, ops.segment_gather_sum(feat, src, dst, n, ew))
+    seg, order = torch.sort(dst, stable=True)
+    offsets = torch.searchsorted(
+        seg, torch.arange(n + 1, dtype=torch.int32, device="cuda"),
+        out_int32=True)
+    del seg
+    if hasattr(ops, "_gather_sum_launch"):
+        def kernel():
+            return ops._gather_sum_launch(feat, src, ew, order, offsets, n)
+    else:
+        idx_s, w_s = src[order].contiguous(), ew[order].contiguous()
+
+        def kernel():
+            return ops._gather_launch(feat, idx_s, w_s, offsets, 0, n)
+    ragged = {"shape": OGB, "digest": out_digest,
+              "ms": time_ms(torch, lambda: ops.segment_gather_sum(
+                  feat, src, dst, n, ew)),
+              "kernel_ms": time_ms(torch, kernel)}
+    return {"fixed": fixed, "ragged": ragged}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("calls", type=Path, help="file saved by chip_smoke.py "
@@ -113,8 +166,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(args.src.resolve()))
     sys.path.insert(1, str(ROOT))
-    from chip_smoke import (FUSED_GATHERS, contract_call, host_ms,
-                            launch_floor_ms, max_abs_err, time_ms,
+    from chip_smoke import (FUSED_GATHERS, contract_call, contract_out,
+                            host_ms, launch_floor_ms, max_abs_err, time_ms,
                             unfused_segment)
     from repro_torch.kernels import _build, ops, ref
 
@@ -162,7 +215,8 @@ def main(argv=None) -> int:
                 if ckw.get(FUSED_GATHERS.get(name)) is not None:
                     seg = ((lambda: kern(*cargs, **ckw)) if fused else
                            unfused_segment(torch, kern, name, cargs, ckw))
-                    if max_abs_err(torch, seg(), kern(*targs, **tkw)) != 0:
+                    if max_abs_err(torch, seg(), contract_out(
+                            name, kern(*targs, **tkw))) != 0:
                         raise SystemExit(f"kernel_ab: {args.label} {name} "
                                          f"{size}: the step segment differs "
                                          f"from the contract form")
@@ -171,6 +225,9 @@ def main(argv=None) -> int:
                     rec["segment_ms"] = time_ms(torch, seg)
                     rec["segment_host_ms"] = host_ms(torch, seg)
                 emit(f, rec)
+        for call, rec in gather_calls(torch, ops).items():
+            emit(f, {"label": args.label, "src": str(args.src), "card": card,
+                     "name": "segment_gather", "call": call, **rec})
         if args.queries:
             emit(f, {"label": args.label, "card": card,
                      "scale": args.queries,
