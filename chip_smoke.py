@@ -83,15 +83,35 @@ Phases, each fatal on failure (no phase's error is caught):
    ``serve_bulk`` batch; GCN aggregation over ``ogb_products``), held
    against its plain version within tolerance and timed beside it and
    beside ``torch.nn.functional.embedding_bag``; the ragged form both
-   through its wrapper and as its kernel alone on the sorted keys.
+   through its wrapper and as its kernel alone on the sorted keys;
+7. serve (run after 5b's checks, before its compaction): one
+   ``DatasetRegistry`` on the card hosts phase 5's graph (``lubm``, static)
+   and phase 5b's store with its final delta (``live``, updatable) behind
+   a ``Scheduler`` (4 workers, batches of up to 64, a 20 ms batch window)
+   and the HTTP server on 127.0.0.1; over HTTP come the 400, 404, 409 and
+   504 cases (the 504 a 1 ms deadline on a query not compiled yet), the 14
+   LUBM queries to both datasets with an alpha-renamed duplicate of each
+   from 8 client threads, phase 5c's 64 F1 members with a duplicate of each
+   all at once (a parameterized batch of 2 or more and coalesced requests
+   must be seen), an INSERT DATA on ``live`` that a re-query shows and a
+   DELETE DATA that reverts it, a misestimated query repeated until the
+   workload feedback replans it (``feedback_min_runs=2``,
+   ``qerror_threshold=1.5``), a forced trace (its step spans name the
+   step kernels the run reports, each with a positive ``model_ms`` from the
+   roofline's ``cuda`` row), and ``/healthz``, ``/metrics``,
+   ``/debug/workload``, ``/debug/slow`` and the small-plan probe's
+   verdicts; every answer's count and sorted decoded rows equal phase 5's
+   or 5b's (F1's: the CPU run's); requests, QPS and the scheduler's p50 /
+   p99 are printed beside the card's name and power limit.
 
-The run drives four paths, each in its own launch-counting window: the
+The run drives five paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
 closes), the live path (phase 5b's stream, its queries and its family
 batch on the final snapshot; its checks against the members' own runs, the
 CPU run, the rebuild and the compacted store come after the window
-closes), and the gather path (phase 6's one
+closes), the serve path (phase 7, its checks included: they read only
+host data), and the gather path (phase 6's one
 call of each ``segment_gather`` entry point at its users' shapes).  The
 kernels' launch counters are set to 0 just before a window and read just
 after it; a kernel of a path launched no time in that path's window fails
@@ -112,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -162,7 +183,7 @@ PROFILED = ("Q2", "Q9")
 # the kernels each path must launch: the static path has no delta, and in
 # delta mode non-tree joins take edge_exists, never tile_membership; the
 # params path's non-tree joins are F4's and F5's, and its fused steps are
-# the batches of one and the lanes rerun alone
+# the batches of one and the lanes rerun alone; the serve path hosts both
 PATH_KERNELS = {
     "static": ("expand_filter_compact", "edge_exists", "tile_membership",
                "bitmap_superset", "signature_filter"),
@@ -171,6 +192,8 @@ PATH_KERNELS = {
     "live": ("expand_filter_compact", "edge_exists", "bitmap_superset",
              "signature_filter", "delta_merge"),
     "gather": ("segment_gather",),
+    # phase 7: the static dataset's five and the live dataset's delta_merge
+    "serve": ENGINE_KERNELS,
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -1074,7 +1097,7 @@ def run_full(torch, ops, scale: int):
         return r, (time.perf_counter() - s) * 1e3
 
     queries = {}
-    gpu_rows = {}
+    gpu_rows, kinds = {}, {}
     for name, q in LUBM_QUERIES.items():
         res, cold = timed(lambda: eng.query(q))
         before = dict(ops.launches)
@@ -1099,6 +1122,7 @@ def run_full(torch, ops, scale: int):
         check(bool(((rows >= -1) & (rows < g.n_vertices)).all()),
               f"{name}: row ids outside the vertex range")
         gpu_rows[name] = rows
+        kinds[name] = list(res.kinds)
         queries[name] = {"count": int(res.count), "cold_ms": cold,
                          "warm_ms": sorted(warm)[1],
                          "count_cold_ms": count_cold,
@@ -1123,7 +1147,8 @@ def run_full(torch, ops, scale: int):
     info["cpu_checked"] = list(LUBM_QUERIES)
     log(f"phase 5: all {len(LUBM_QUERIES)} counts and rows equal the CPU "
         f"run; peak device memory {info['peak_device_bytes']} B")
-    return info, st, (g, maps, eng, cpu)
+    answers = {name: (kinds[name], gpu_rows[name]) for name in gpu_rows}
+    return info, st, (g, maps, eng, cpu), answers
 
 
 # the capacity graph: hubs typed ub:Hub, each linked to every mid, each mid
@@ -1518,8 +1543,11 @@ def run_live(torch, ops, st, scale: int) -> dict:
     many deletes of base triples, so the final delta sits near half the
     store's auto-compaction threshold (25% of base edges).  Returns the
     phase's record and ``finish``, which holds the final snapshot against
-    the CPU run, the rebuild and the compacted store (outside the live
-    path's launch window)."""
+    the CPU run and the rebuild (outside the live path's launch window),
+    ``compacted``, which compacts the store and holds it against the final
+    snapshot (after phase 7 has served the store), and what phase 7 hosts:
+    the store, its base graph, its maps and the final snapshot's answers
+    (name -> (column kinds, rows))."""
     from repro_torch.core import SparqlEngine
     from repro_torch.rdf.transform import type_aware_transform
     from repro_torch.rdf.workloads import LUBM_QUERIES
@@ -1636,6 +1664,7 @@ def run_live(torch, ops, st, scale: int) -> dict:
         gpu_rows[name] = res.rows
         queries[name] = {
             "count": int(res.count), "cold_ms": cold,
+            "column_kinds": list(res.kinds),
             "warm_ms": sorted(warm)[1], "count_cold_ms": count_cold,
             "count_warm_ms": sorted(count_warm)[1],
             "launches_per_query": per_query,
@@ -1696,7 +1725,9 @@ def run_live(torch, ops, st, scale: int) -> dict:
                   f"live {name}: snapshot count {queries[name]['count']} "
                   f"!= rebuild count {n}")
         info["rebuild_check_s"] = time.perf_counter() - t2
+        info["total_s"] = time.perf_counter() - t0
 
+    def compacted() -> None:
         # held against the compacted store (ids survive compaction)
         t3 = time.perf_counter()
         eng.set_graph(store.compact())
@@ -1707,13 +1738,418 @@ def run_live(torch, ops, st, scale: int) -> dict:
                 np.sort(res.rows, axis=0), np.sort(gpu_rows[name], axis=0)),
                 f"live {name}: compacted answer differs from the snapshot's")
         info["compacted_check_s"] = time.perf_counter() - t3
-        info["total_s"] = time.perf_counter() - t0
         log(f"phase 5b: all {len(LUBM_QUERIES)} queries on the final "
             f"snapshot equal the CPU run (rows), the rebuild (counts) and the "
             f"compacted store (rows); peak device memory "
-            f"{info['peak_device_bytes']} B; {info['total_s']:.1f} s")
+            f"{info['peak_device_bytes']} B; {info['total_s']:.1f} s before "
+            f"phase 7, compaction {info['compact_s']:.1f} s")
 
-    return info, finish
+    answers = {name: (queries[name]["column_kinds"], gpu_rows[name])
+               for name in gpu_rows}
+    return info, finish, compacted, (store, g, maps, answers)
+
+
+# ------------------------------------------------------------------- serve
+
+SERVE_WORKERS = 4
+SERVE_CLIENTS = 8
+SERVE_BATCH_MAX = 64
+SERVE_BATCH_WINDOW_MS = 20.0
+# the edge phase 7 inserts into the live dataset and deletes again (a
+# graduate student taking one more course: the store deletes edges, not
+# type triples, so the revert leaves the data as it was), and the query
+# that must show the new binding in between
+SERVE_UPDATE = "{s} ub:takesCourse {c} ."
+SERVE_PROBE = ("SELECT ?x WHERE {{ ?x rdf:type ub:GraduateStudent . "
+               "?x ub:takesCourse {c} . }}")
+# the replan loop: a plan is replanned after 2 runs whose median worst-step
+# q-error passes 1.5, and the loop stops after this many repeats
+SERVE_FEEDBACK = dict(feedback_min_runs=2, qerror_threshold=1.5)
+SERVE_REPLAN_TRIES = 8
+
+
+def _renamed(text: str) -> str:
+    """An alpha-renamed duplicate: the same query (and fingerprint) with
+    every variable renamed."""
+    return re.sub(r"\?(\w+)", r"?dup_\1", text)
+
+
+class Decoder:
+    """A result's rows as the multiset of tuples of the terms the server's
+    JSON carries (``value``: the term without its quotes; ``None``
+    unbound): two results with equal multisets have equal sorted rows."""
+
+    def __init__(self, maps):
+        self.maps = maps
+        self.terms = np.asarray(maps.dict.terms.to_str, dtype=object)
+        self.preds = np.asarray(maps.dict.predicates.to_str, dtype=object)
+
+    def rows(self, kinds, rows) -> list[tuple]:
+        cols = []
+        for c, kind in enumerate(kinds):
+            ids = np.asarray(rows[:, c], np.int64)
+            lut, to_term = ((self.terms, self.maps.vertex_to_term)
+                            if kind == "vertex"
+                            else (self.preds, self.maps.elabel_to_pred))
+            terms = lut[to_term[np.maximum(ids, 0)]] if ids.size else []
+            cols.append([None if i < 0 else t.strip('"')
+                         for i, t in zip(ids.tolist(), list(terms))])
+        return Counter(zip(*cols) if cols else [()] * int(rows.shape[0]))
+
+
+def _served_rows(body: dict) -> Counter:
+    head = body["head"]["vars"]
+    return Counter(tuple(b[v]["value"] if v in b else None for v in head)
+                   for b in body["results"]["bindings"])
+
+
+def _http(base: str, method: str, path: str, body: str | None = None,
+          ctype: str | None = None) -> tuple[int, dict | str, float]:
+    """One request: (status, JSON body or text, client-side ms).  An error
+    status is returned, not raised, and nothing is retried."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, method=method,
+        data=None if body is None else body.encode(),
+        headers={"Content-Type": ctype} if ctype else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, ctype_out, raw = r.status, r.headers["Content-Type"], \
+                r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype_out, raw = e.code, e.headers["Content-Type"], e.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (status, json.loads(raw) if "json" in (ctype_out or "")
+            else raw.decode(), ms)
+
+
+def _sparql_path(text: str, dataset: str, **params) -> str:
+    from urllib.parse import urlencode
+
+    return "/sparql?" + urlencode({"query": text, "dataset": dataset,
+                                   **params})
+
+
+def _in_threads(n: int, work) -> list:
+    """Run ``work(k)`` for k < n on n threads released together; returns
+    their results and raises the first error one of them raised."""
+    import threading
+
+    out: list = [None] * n
+    errors: list = []
+    start = threading.Barrier(n)
+
+    def run(k):
+        try:
+            start.wait(timeout=120)
+            out[k] = work(k)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _steps(span: dict) -> list[dict]:
+    out = [span] if span["name"] == "step" else []
+    for c in span.get("children", ()):
+        out += _steps(c)
+    return out
+
+
+def run_serve(torch, ops, static, live, card: str) -> dict:
+    """Phase 7: the serving path at full scale.  One ``DatasetRegistry`` on
+    the card hosts ``lubm`` (phase 5's graph, static) and ``live`` (phase
+    5b's store with its final delta, updatable), behind a ``Scheduler``
+    (``SERVE_WORKERS`` workers, batches of up to ``SERVE_BATCH_MAX``) and the
+    HTTP server on 127.0.0.1, port 0.  Clients send, over HTTP: the error
+    cases (504 first, on a query not compiled yet), the 14 LUBM queries to
+    both datasets with an alpha-renamed duplicate of each
+    (``SERVE_CLIENTS`` threads), phase 5c's 64 F1 members with a duplicate
+    of each all at once (so they batch and coalesce), an update that is
+    seen and reverted, the feedback loop until a replan, a forced trace,
+    and the debug endpoints.  Every answer's count and sorted decoded rows
+    equal phase 5's or 5b's answers (F1's: the CPU run's)."""
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+    from repro_torch.serve.fingerprint import fingerprint_query
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.server import (DatasetRegistry, make_server,
+                                          serve_in_thread)
+
+    g, maps, answers, cpu = static
+    store, live_g, live_maps, live_answers = live
+    t0 = time.perf_counter()
+    dec = {"lubm": Decoder(maps), "live": Decoder(live_maps)}
+    want = {}
+    for ds, ans in (("lubm", answers), ("live", live_answers)):
+        for name, (kinds, rows) in ans.items():
+            want[ds, name] = dec[ds].rows(kinds, rows)
+    f1 = family_queries(maps)["F1"]
+    f1_want = {}
+    for q in f1:
+        if q not in f1_want:
+            r = cpu.query(q)
+            f1_want[q] = dec["lubm"].rows(r.kinds, r.rows)
+    info: dict = {"workers": SERVE_WORKERS, "clients": SERVE_CLIENTS,
+                  "batch_max": SERVE_BATCH_MAX,
+                  "batch_window_ms": SERVE_BATCH_WINDOW_MS,
+                  "expected_s": time.perf_counter() - t0}
+
+    reg = DatasetRegistry(feedback=True, **SERVE_FEEDBACK)
+    reg.register("lubm", g, maps)
+    reg.register("live", live_g, live_maps, updatable=True, store=store)
+    sched = Scheduler(reg, workers=SERVE_WORKERS, max_queue=512,
+                      default_timeout_s=300.0, metrics=reg.metrics,
+                      batch_max=SERVE_BATCH_MAX,
+                      batch_window_ms=SERVE_BATCH_WINDOW_MS)
+    srv = make_server(reg, "127.0.0.1", 0, scheduler=sched)
+    http_thread = serve_in_thread(srv)
+    base = "http://%s:%d" % srv.server_address[:2]
+    t_traffic = time.perf_counter()
+    try:
+        # errors, the deadline first: Q5 is not compiled yet
+        codes = {}
+        errors = (
+            ("deadline", 504, ("GET", _sparql_path(
+                LUBM_QUERIES["Q5"], "lubm", timeout_ms=1))),
+            ("bad query", 400, ("GET", _sparql_path(
+                "SELECT nonsense {{{", "lubm"))),
+            ("unknown dataset", 404, ("GET", _sparql_path(
+                LUBM_QUERIES["Q1"], "nope"))),
+            ("unknown endpoint", 404, ("GET", "/bogus")),
+            ("static update", 409, ("POST", "/update?dataset=lubm",
+                                    "INSERT DATA { ub:a ub:p ub:b . }",
+                                    "application/sparql-update")),
+            ("bad update", 400, ("POST", "/update?dataset=live",
+                                 "DELETE WHERE { ?s ?p ?o }",
+                                 "application/sparql-update")))
+        for what, want_code, args in errors:
+            status, body, _ = _http(base, *args)
+            check(status == want_code and "error" in body,
+                  f"phase 7: {what}: status {status}, want {want_code}")
+            codes[what] = status
+        info["error_codes"] = codes
+
+        # the 14 queries to both datasets, each with a renamed duplicate
+        work = [(ds, name, dup) for ds in ("lubm", "live")
+                for name in LUBM_QUERIES for dup in (False, True)]
+
+        def client(k):
+            out = []
+            for ds, name, dup in work[k::SERVE_CLIENTS]:
+                text = LUBM_QUERIES[name]
+                status, body, ms = _http(base, "GET", _sparql_path(
+                    _renamed(text) if dup else text, ds))
+                check(status == 200, f"phase 7: {ds} {name}: status "
+                                     f"{status}: {body}")
+                rows = _served_rows(body)
+                n_want = want[ds, name].total()
+                check(body["stats"]["count"] == n_want
+                      and rows == want[ds, name],
+                      f"phase 7: {ds} {name}{' (renamed)' if dup else ''}: "
+                      f"{body['stats']['count']} rows differ from phase "
+                      f"{'5' if ds == 'lubm' else '5b'}'s {n_want}")
+                out.append(ms)
+            return out
+
+        t1 = time.perf_counter()
+        mix_ms = sum(_in_threads(SERVE_CLIENTS, client), [])
+        info["mix"] = {"requests": len(work),
+                       "s": time.perf_counter() - t1,
+                       "client_ms_max": max(mix_ms)}
+        log(f"phase 7: {len(work)} LUBM requests (14 queries x 2 datasets x "
+            f"2 names) from {SERVE_CLIENTS} clients equal phases 5 and 5b "
+            f"in {info['mix']['s']:.1f} s")
+
+        # F1's 64 members and a renamed duplicate of each, all at once
+        burst = []
+        for q in f1:
+            burst += [q, _renamed(q)]
+
+        def member(k):
+            q = burst[k]
+            status, body, _ = _http(base, "POST", "/sparql", json.dumps(
+                {"query": q, "dataset": "lubm"}), "application/json")
+            check(status == 200, f"phase 7: F1 member {k}: status {status}")
+            orig = f1[k // 2]
+            check(_served_rows(body) == f1_want[orig],
+                  f"phase 7: F1 member {k} differs from the CPU run")
+            return body["stats"]["count"]
+
+        t1 = time.perf_counter()
+        _in_threads(len(burst), member)
+        batches = reg.journal.snapshot(kind="batch")
+        sizes = [e["size"] for e in batches if e.get("parameterized")]
+        check(any(n >= 2 for n in sizes),
+              f"phase 7: no parameterized batch of 2 or more: {sizes}")
+        coalesced = reg.metrics.coalesced.total()
+        check(coalesced > 0, "phase 7: no request coalesced")
+        info["burst"] = {"requests": len(burst),
+                         "s": time.perf_counter() - t1,
+                         "parameterized_batch_sizes": sorted(sizes),
+                         "coalesced": coalesced}
+        log(f"phase 7: F1 burst of {len(burst)}: parameterized batches "
+            f"{sorted(sizes, reverse=True)[:8]}, coalesced {coalesced}")
+
+        # an update on live, seen and then reverted
+        terms = live_maps.dict.terms.to_str
+        course = next(t for t in terms
+                      if re.match(r"ub:GraduateCourse\d", t))
+        probe = _sparql_path(SERVE_PROBE.format(c=course), "live")
+        status, before, _ = _http(base, "GET", probe)
+        check(status == 200, f"phase 7: probe status {status}")
+        taking = set(_served_rows(before))
+        student = next(t for t in terms
+                       if re.match(r"ub:GraduateStudent\d", t)
+                       and (t,) not in taking)
+        edge = SERVE_UPDATE.format(s=student, c=course)
+        status, up, _ = _http(base, "POST", "/update?dataset=live",
+                              f"INSERT DATA {{ {edge} }}",
+                              "application/sparql-update")
+        check(status == 200 and up["inserted"] == 1,
+              f"phase 7: insert: {status} {up}")
+        status, seen, _ = _http(base, "GET", probe)
+        check(status == 200 and _served_rows(seen)
+              == _served_rows(before) + Counter([(student,)]),
+              "phase 7: the inserted binding is not served")
+        status, down, _ = _http(base, "POST", "/update", json.dumps(
+            {"dataset": "live", "update": f"DELETE DATA {{ {edge} }}"}),
+            "application/json")
+        check(status == 200 and down["deleted"] == 1,
+              f"phase 7: delete: {status} {down}")
+        status, after, _ = _http(base, "GET", probe)
+        check(status == 200 and _served_rows(after) == _served_rows(before),
+              "phase 7: the reverted probe differs from before the insert")
+        for name in ("Q2", "Q9"):
+            status, body, _ = _http(base, "GET", _sparql_path(
+                LUBM_QUERIES[name], "live"))
+            check(status == 200 and _served_rows(body) == want["live", name],
+                  f"phase 7: live {name} after the revert differs")
+        info["update"] = {"edge": edge,
+                          "probe_count": before["stats"]["count"],
+                          "inserted": up, "deleted": down}
+        log(f"phase 7: live update: probe {before['stats']['count']} -> "
+            f"{seen['stats']['count']} -> {after['stats']['count']} rows, "
+            f"version {down['version']}")
+
+        # feedback: repeat a misestimated, not yet replanned solo shape
+        # until the registry replans it
+        names = {fingerprint_query(q): n for n, q in LUBM_QUERIES.items()}
+        profiles = [p for p in reg.workload.snapshot(limit=None)
+                    if p["dataset"] == "lubm" and p["plan_key"] in names
+                    and not p["replans"]
+                    and p["q_error_median"] > SERVE_FEEDBACK[
+                        "qerror_threshold"]]
+        replans_before = len(reg.journal.snapshot(kind="replan"))
+        fb = {"replans_in_mix": replans_before}
+        if profiles:
+            fp = profiles[0]["plan_key"]
+            name = names[fp]
+            fb.update(query=name, q_error_median=profiles[0]["q_error_median"])
+            for tries in range(1, SERVE_REPLAN_TRIES + 1):
+                status, body, _ = _http(base, "GET", _sparql_path(
+                    LUBM_QUERIES[name], "lubm"))
+                check(status == 200 and _served_rows(body) ==
+                      want["lubm", name],
+                      f"phase 7: {name} differs during the feedback loop")
+                if any(e["fingerprint"] == fp
+                       for e in reg.journal.snapshot(kind="replan")):
+                    break
+            replanned = [e for e in reg.journal.snapshot(kind="replan")
+                         if e["fingerprint"] == fp]
+            check(bool(replanned), f"phase 7: {name} was not replanned in "
+                                   f"{SERVE_REPLAN_TRIES} repeats")
+            status, body, _ = _http(base, "GET", _sparql_path(
+                LUBM_QUERIES[name], "lubm"))
+            check(status == 200 and _served_rows(body) == want["lubm", name],
+                  f"phase 7: {name} differs after its replan")
+            prof = [p for p in reg.workload.snapshot(limit=None)
+                    if p["dataset"] == "lubm" and p["plan_key"] == fp]
+            fb.update(tries=tries, replan=replanned[0],
+                      search=prof[0]["search"])
+        check(len(reg.journal.snapshot(kind="replan")) > 0,
+              "phase 7: the feedback loop never replanned")
+        info["feedback"] = fb
+        log(f"phase 7: feedback: {fb}")
+
+        # one forced trace over HTTP, one through the scheduler itself
+        status, body, _ = _http(base, "GET", _sparql_path(
+            LUBM_QUERIES["Q9"], "lubm", trace=1))
+        check(status == 200 and body["trace"]["profiled"]
+              and _served_rows(body) == want["lubm", "Q9"],
+              f"phase 7: forced trace: status {status}")
+        http_steps = _steps(body["trace"]["root"])
+        res = sched.submit("lubm", LUBM_QUERIES["Q2"], trace=True)
+        kernels = [k for br in res.stats["exec"]["branches"]
+                   for k in br["base"]["step_kernels"]]
+        steps = _steps(res.stats["trace"]["root"])
+        check([s["meta"]["kernel"] for s in steps] == kernels,
+              f"phase 7: traced step kernels {steps} != {kernels}")
+        for s in steps + http_steps:
+            check(s["meta"]["model_ms"] > 0 and s["dur_ms"] > 0,
+                  f"phase 7: a traced step without model or time: {s}")
+        info["trace"] = {"http_steps": [s["meta"] for s in http_steps],
+                         "steps": [{**s["meta"], "dur_ms": s["dur_ms"]}
+                                   for s in steps]}
+        log(f"phase 7: forced traces: Q9 over HTTP "
+            f"{[s['meta']['kernel'] for s in http_steps]}, Q2 "
+            + ", ".join(f"{s['meta']['kernel']} {s['dur_ms']:.3f} ms "
+                        f"(model {s['meta']['model_ms']:.4f})"
+                        for s in steps))
+
+        # the debug endpoints
+        status, health, _ = _http(base, "GET", "/healthz")
+        check(status == 200 and set(health["datasets"]) == {"lubm", "live"}
+              and "store" in health["datasets"]["live"],
+              f"phase 7: /healthz {status}")
+        status, text, _ = _http(base, "GET", "/metrics")
+        metrics = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                   for ln in text.splitlines() if ln and ln[0] != "#"}
+        check(status == 200 and metrics["repro_coalesced_total"] > 0,
+              "phase 7: /metrics shows no coalesced request")
+        status, workload, _ = _http(base, "GET", "/debug/workload?limit=100")
+        check(status == 200 and workload["profiles"],
+              f"phase 7: /debug/workload {status}")
+        status, slow, _ = _http(base, "GET", "/debug/slow")
+        check(status == 200 and slow["slow"]["lubm"],
+              f"phase 7: /debug/slow {status}")
+        status, probes, _ = _http(base, "GET",
+                                  "/debug/decisions?kind=small_probe&"
+                                  "limit=1000")
+        check(status == 200, f"phase 7: /debug/decisions {status}")
+        info["small_probe"] = [
+            {k: e.get(k) for k in ("dataset", "fingerprint", "legacy_wins",
+                                   "t_pipelined_ms", "t_legacy_ms")}
+            for e in probes["decisions"]]
+        info["decisions"] = workload["decisions"]
+        info["replans"] = reg.journal.snapshot(kind="replan")
+    finally:
+        srv.shutdown()
+        sched.stop()
+        srv.server_close()
+        http_thread.join(timeout=60)
+    check(not http_thread.is_alive(), "phase 7: the HTTP thread hung")
+    traffic_s = time.perf_counter() - t_traffic
+    lat = reg.metrics.latency
+    n = int(reg.metrics.requests.total())
+    info.update(requests=n, traffic_s=traffic_s, qps=n / traffic_s,
+                p50_ms=lat.percentile(50), p99_ms=lat.percentile(99),
+                card=card, total_s=time.perf_counter() - t0)
+    log(f"phase 7: {card}: {n} requests in {traffic_s:.2f} s, "
+        f"{n / traffic_s:.2f} QPS, p50 {info['p50_ms']:.3f} ms, p99 "
+        f"{info['p99_ms']:.3f} ms (the scheduler's latency histogram); "
+        f"small-plan probe verdicts {len(info['small_probe'])}")
+    return info
 
 
 def profile_queries(torch, eng) -> dict:
@@ -2032,10 +2468,12 @@ def main(argv=None) -> int:
     rec = Recorder(ops)
     by_path: dict[str, dict] = {}
 
-    def window(path: str, drive):
+    def window(path: str, drive, record: bool = True):
         """Drive one path with the launch counters set to 0 just before and
-        read just after; each kernel of the path must have launched."""
-        rec.install(path)
+        read just after; each kernel of the path must have launched.
+        ``record`` keeps the path's calls for phase 6."""
+        if record:
+            rec.install(path)
         ops.reset_launches()
         out = drive()
         torch.cuda.synchronize()
@@ -2047,18 +2485,23 @@ def main(argv=None) -> int:
                   f"{name} was never launched on the {path} path")
         return out
 
-    parity, (full, st, static) = window("static", lambda: (
+    parity, (full, st, static, answers) = window("static", lambda: (
         run_parity(torch, bench), run_full(torch, ops, args.scale)))
     full["profiles"] = profile_queries(torch, static[2])
     full["capacity"] = run_capacity(torch)
     params, finish = window("params", lambda: run_params(torch, ops,
                                                          *static))
     finish()
+    g, maps, cpu = static[0], static[1], static[3]  # the card's engine goes
     del static, finish
-    live, finish = window("live", lambda: run_live(torch, ops, st,
-                                                   args.scale))
+    live, finish, compacted, served = window(
+        "live", lambda: run_live(torch, ops, st, args.scale))
     finish()
     del st, finish
+    serve = window("serve", lambda: run_serve(
+        torch, ops, (g, maps, answers, cpu), served, card), record=False)
+    compacted()
+    del g, maps, answers, cpu, served, compacted
     inputs = gather_inputs(torch)
     outs = window("gather", lambda: drive_gather(torch, ops, inputs))
 
@@ -2077,7 +2520,8 @@ def main(argv=None) -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "parity": parity, "full": full,
-              "params": params, "live": live, "kernels": table,
+              "params": params, "live": live, "serve": serve,
+              "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -39,10 +39,23 @@ Bitmaps, masks and signatures live on the device as int32 bit patterns of
 the reference's uint32 words (converted where they are uploaded:
 :meth:`DeviceGraph.from_graph`, the plan arrays and the snapshot's device
 tensors).
+
+One executor may run on several threads at once (the serving scheduler's
+workers).  They launch on their current stream, the device's default
+stream unless a caller set another, so their kernels are ordered by that
+stream.  What they share on the host is guarded: the learned capacity
+schedules (a lock; a run works on its own copy of its schedule and merges
+growth back, so a schedule only grows), the program cache (the first build
+wins) and the small-plan verdicts (either verdict gives the same answers).
+A profiled run times its steps on its thread's own stream
+(``_StepTimer``), so other threads' work on the default stream is not in
+its step times.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
@@ -51,6 +64,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.roofline import estimate_step_ms
 from repro_torch.core.planner import ExecPlan, Step
 from repro_torch.core.planner.ir import _next_pow2
 from repro_torch.kernels import ops as kops
@@ -974,6 +988,103 @@ def _step_kernel_name(dg: DeviceGraph, step: Step, sarr: dict,
     return "ragged_expand"
 
 
+def _annotate_step_spans(trace, plan: ExecPlan, dg: DeviceGraph, sarrs,
+                         opts: ExecOpts, stats: dict, collect: str,
+                         n_src: int) -> None:
+    """Attach one summary span per plan step: executed-counter meta
+    (rows/kept/retries/capacity), the kernel that ran, and a roofline
+    estimate for this device type next to the measured wall time (profiled
+    runs have real per-step durations; others report zero-duration
+    spans)."""
+    backend = dg.device.type
+    nq = plan.query.n_vertices
+    bitmap_words = int(dg.arrays["label_bitmap"].shape[1])
+    wall = stats.get("step_wall_ms")
+    caps = stats.get("caps") or []
+    rows_in = float(n_src)
+    for si, step in enumerate(plan.steps):
+        count_only = collect == "count" and si == len(plan.steps) - 1
+        kernel = _step_kernel_name(dg, step, sarrs[si], opts, count_only)
+        expanded = stats["step_rows"][si]
+        kept = stats["step_kept"][si]
+        cap = int(caps[si]) if si < len(caps) else 0
+        meta: dict[str, Any] = {
+            "step": si, "kernel": kernel, "rows": expanded, "kept": kept,
+            "retries": stats["step_retries"][si], "capacity": cap,
+        }
+        if step.sig_mask is not None:
+            p_in = stats["step_prune_in"][si]
+            meta["prune_in"] = p_in
+            meta["prune_out"] = stats["step_prune_out"][si]
+            if p_in:
+                meta["prune_ratio"] = round(
+                    stats["step_prune_out"][si] / p_in, 4)
+        if step.nontree:
+            meta["nontree_checks"] = len(step.nontree)
+        est = estimate_step_ms(
+            kernel, backend=backend, expanded=expanded, rows=rows_in,
+            capacity=cap, nq=nq, bitmap_words=bitmap_words,
+            n_iters=dg.max_log_deg)
+        model_ms = est["model_ms"]
+        for _ in step.nontree:
+            model_ms += estimate_step_ms(
+                "edge_exists", backend=backend, expanded=expanded,
+                n_iters=dg.max_log_deg)["model_ms"]
+        meta["model_ms"] = round(model_ms, 6)
+        meta["model_dominant"] = est["dominant"]
+        dur_s = (wall[si] / 1e3) if wall is not None else 0.0
+        trace.add("step", dur_s, **meta)
+        rows_in = float(kept)
+
+
+class _StepTimer:
+    """Times the steps of one profiled chunk on ``device``.
+
+    On CUDA the chunk runs on ``stream``, the calling thread's own timing
+    stream (after the current stream's earlier work), and each step is
+    timed with CUDA events on it, so a step's time holds this query's work
+    alone, not the work other threads queued on the shared default stream
+    meanwhile.  The stream has high priority: the card hands its blocks
+    out before those of kernels already waiting on other streams, so a
+    step does not wait for another thread's long kernel to drain either.
+    On exit the current stream waits for it.  On the CPU a step is timed
+    by the host clock."""
+
+    def __init__(self, device: torch.device, stream=None):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self._caller = torch.cuda.current_stream(device)
+            self._stream = stream
+
+    @contextlib.contextmanager
+    def stream(self):
+        if not self.cuda:
+            yield
+            return
+        self._stream.wait_stream(self._caller)
+        try:
+            with torch.cuda.stream(self._stream):
+                yield
+        finally:
+            self._caller.wait_stream(self._stream)
+
+    def start(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
+
+    def stop_ms(self, start) -> float:
+        """Milliseconds since ``start``, once the step's work is done."""
+        if not self.cuda:
+            return (time.perf_counter() - start) * 1e3
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self._stream)
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
 def _poisoned(out):
     """Injected silent corruption: this chunk's count reads as zero."""
     b, p, org, count, scalars = out
@@ -1029,10 +1140,17 @@ class Executor:
         self._state: tuple[Any, DeviceGraph] = (view, dg)
         self._compiled: dict[ProgramKey, Any] = {}
         # learned per-plan capacity schedules (overflow doublings persist,
-        # so later chunks / queries start right-sized)
+        # so later chunks / queries start right-sized); runs on several
+        # threads read and grow them under the lock
         self._caps_cache: dict[tuple, list[int]] = {}
-        # learned pipelined-vs-legacy choice for small plans (_small_plan)
+        self._caps_lock = threading.Lock()
+        # learned pipelined-vs-legacy choice for small plans (_small_plan);
+        # two threads may both probe a plan, and the later verdict stays
         self._small_mode: dict[tuple, bool] = {}
+        # each thread's high-priority stream for profiled steps
+        # (_StepTimer), made at its first profiled run: the caching
+        # allocator keeps blocks per stream, so a thread reuses its own
+        self._timing = threading.local()
 
     @property
     def view(self):
@@ -1095,9 +1213,12 @@ class Executor:
         fresh = fn is None
         if fresh:
             _faults.fire("compile")
-            fn = build_chunk_fn(dg, plan, caps, n_in, opts,
-                                table_input, collect, start, stop)
-            self._compiled[key] = fn
+            built = build_chunk_fn(dg, plan, caps, n_in, opts,
+                                   table_input, collect, start, stop)
+            # another thread may have built the same program meanwhile:
+            # the first one in the cache is used, and only its build counts
+            fn = self._compiled.setdefault(key, built)
+            fresh = fn is built
         return fn, fresh
 
     def _arrays(self, plan: ExecPlan,
@@ -1264,12 +1385,15 @@ class Executor:
 
     def _schedule(self, plan: ExecPlan, chunk_size: int,
                   opts: ExecOpts | None = None) -> tuple[tuple, list[int]]:
-        """The (learned) per-step capacity schedule for this plan+chunk."""
+        """The (learned) per-step capacity schedule for this plan+chunk: a
+        copy, which the run grows and merges back (:meth:`_learn_caps`)."""
         opts = self.opts if opts is None else opts
         key = (plan.signature(), chunk_size, bool(opts.cap_schedule),
                opts.cap_slack, opts.init_cap)
-        caps = self._caps_cache.get(key)
-        if caps is None:
+        with self._caps_lock:
+            caps = self._caps_cache.get(key)
+            if caps is not None:
+                return key, list(caps)
             if opts.cap_schedule:
                 caps = list(plan.capacity_schedule(
                     chunk_size, opts.init_cap, opts.max_cap, opts.cap_slack))
@@ -1285,7 +1409,16 @@ class Executor:
                 cap0 = max(cap0, _next_pow2(chunk_size))
                 caps = [cap0] * len(plan.steps)
             self._caps_cache[key] = caps
-        return key, caps
+            return key, list(caps)
+
+    def _learn_caps(self, key: tuple, used) -> list[int]:
+        """Merge a run's grown capacities into the shared schedule (each
+        step keeps the larger one) and return a copy of it."""
+        with self._caps_lock:
+            shared = self._caps_cache[key]
+            for si, c in enumerate(used):
+                shared[si] = max(shared[si], c)
+            return list(shared)
 
     def run(
         self,
@@ -1294,6 +1427,7 @@ class Executor:
         initial: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         profile: bool | None = None,
         state: tuple | None = None,
+        trace=None,
         params: np.ndarray | None = None,
         cancel: CancelToken | None = None,
         _opts_override: ExecOpts | None = None,
@@ -1304,7 +1438,12 @@ class Executor:
         with device syncs to fill per-step wall times in ``Result.stats``.
         ``state`` pins a ``pin()``-captured (view, device graph) pair so a
         multi-run query stays on one snapshot under concurrent updates.
-        ``params`` is a parameterized plan's constant vector (int32
+        ``trace`` (a :class:`repro_torch.obs.Trace`) records compile (a
+        chunk program's build) / dispatch / device-wait / per-step spans
+        under the caller's current span; a trace with
+        ``profile_steps=True`` forces profiled execution, so the step spans
+        carry measured times.  ``params`` is a parameterized plan's
+        constant vector (int32
         ``[plan.n_params]``); a negative entry is a constant missing from
         the dictionary and gives an empty result without touching the
         device.  ``cancel`` is polled between chunk dispatches and
@@ -1319,7 +1458,7 @@ class Executor:
         if _opts_override is not None:
             # explicit config (small-plan probes, degraded re-runs)
             return self._run_impl(plan, collect, initial, profile, state,
-                                  params, cancel, _opts_override)
+                                  trace, params, cancel, _opts_override)
         sig = plan.signature()
         policy = self._policy
         level = self._breaker.level(sig)
@@ -1327,8 +1466,8 @@ class Executor:
         while True:
             try:
                 res = self._run_impl(
-                    plan, collect, initial, profile, state, params, cancel,
-                    degrade_opts(self.opts, level) if level else None)
+                    plan, collect, initial, profile, state, trace, params,
+                    cancel, degrade_opts(self.opts, level) if level else None)
             except QueryCancelled:
                 raise
             except Exception as e:  # noqa: BLE001 - filtered just below
@@ -1379,6 +1518,7 @@ class Executor:
         initial: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         profile: bool | None = None,
         state: tuple | None = None,
+        trace=None,
         params: np.ndarray | None = None,
         cancel: CancelToken | None = None,
         _opts_override: ExecOpts | None = None,
@@ -1404,8 +1544,8 @@ class Executor:
         dev = self.device
         opts = self.opts if _opts_override is None else _opts_override
         small_legacy = False  # remembered small-probe verdict applied?
-        if (_opts_override is None and initial is None and not profile
-                and _small_plan(plan, opts)):
+        if (_opts_override is None and initial is None and trace is None
+                and not profile and _small_plan(plan, opts)):
             # B1-class small queries: probe once per plan signature (each
             # configuration twice — first warm, second timed) and remember
             # the winner.  Both return identical results.
@@ -1439,6 +1579,8 @@ class Executor:
                                async_chunks=1, use_fused=False)
                 small_legacy = True
         profile = opts.profile if profile is None else profile
+        if trace is not None and trace.profile_steps:
+            profile = True
         nq = plan.query.n_vertices
         param_start = plan.start_param_slot >= 0 and params is not None
 
@@ -1490,6 +1632,8 @@ class Executor:
         out_p: list[np.ndarray] = []
         out_o: list[np.ndarray] = []
         chunk_size = min(opts.chunk, max(1, n_src))
+        # this run's copy of the learned schedule: a chunk starts from it,
+        # and its growth is merged into the shared one and copied back here
         caps_key, caps = self._schedule(plan, chunk_size, opts)
         params_dev = self._upload(params) if plan.n_params else None
 
@@ -1510,12 +1654,18 @@ class Executor:
             return (self._upload(bpad), _scalar(n_real, dev),
                     self._upload(ppad), self._upload(opad))
 
-        def call_fn(fn, fresh, args):
-            """One chunk-program invocation (enqueues its kernels)."""
+        def call_fn(fn, fresh, args, **meta):
+            """One chunk-program invocation (enqueues its kernels); with
+            tracing on, the span is named ``compile`` when this call built
+            the program and ``dispatch`` when it only enqueues it."""
             poison = _faults.fire("dispatch")
             if fresh:
                 stats["compiles"] += 1
-            out = fn(*args)
+            if trace is None:
+                out = fn(*args)
+            else:
+                with trace.span("compile" if fresh else "dispatch", **meta):
+                    out = fn(*args)
             if poison:
                 stats["poisoned"] = stats.get("poisoned", 0) + 1
                 out = _poisoned(out)
@@ -1526,8 +1676,10 @@ class Executor:
             used = tuple(caps)
             fn, fresh = self._get_fn(plan, used, chunk_size, extension,
                                      collect, 0, n_steps, dg, opts)
+            ci = stats["chunks"]
             stats["chunks"] += 1
-            return {"out": call_fn(fn, fresh, (*args, params_dev, sarrs)),
+            return {"out": call_fn(fn, fresh, (*args, params_dev, sarrs),
+                                   chunk=ci),
                     "args": args, "caps": used, "offset": offset}
 
         def accumulate(start: int, upto: int, acc_from: int,
@@ -1556,8 +1708,13 @@ class Executor:
             start = 0
             acc_from = 0
             while True:
-                # the one device->host readback of this chunk program
-                sc = scalars.cpu().numpy()
+                # the one device->host readback of this chunk program; with
+                # tracing on, the host's wait for it is the device_wait span
+                if trace is None:
+                    sc = scalars.cpu().numpy()
+                else:
+                    with trace.span("device_wait"):
+                        sc = scalars.cpu().numpy()
                 ovf = int(sc[1])
                 accumulate(start, ovf, acc_from, sc)
                 acc_from = max(acc_from, min(ovf, n_steps))
@@ -1578,7 +1735,7 @@ class Executor:
                     b, p, org, count, scalars = call_fn(
                         fn, fresh,
                         (b[:n_in], count, p[:n_in], org[:n_in], params_dev,
-                         sarrs))
+                         sarrs), resume_step=ovf)
                     start = ovf
                     acc_from = ovf
                     stats["resumes"] += 1
@@ -1593,13 +1750,12 @@ class Executor:
                                              chunk_size, extension, collect,
                                              0, n_steps, dg, opts)
                     b, p, org, count, scalars = call_fn(
-                        fn, fresh, (*rec["args"], params_dev, sarrs))
+                        fn, fresh, (*rec["args"], params_dev, sarrs),
+                        retry=True)
                     start = 0
                 used = new_caps
                 # persist the learned schedule for subsequent chunks
-                shared = self._caps_cache[caps_key]
-                for si in range(n_steps):
-                    shared[si] = max(shared[si], used[si])
+                caps[:] = self._learn_caps(caps_key, used)
             c = int(sc[0])
             total += c
             if collect == "bindings" and c:
@@ -1617,10 +1773,10 @@ class Executor:
             check_cancel()
             hi = min(offset + chunk_size, n_src)
             if profile and n_steps:
-                self._run_profiled_chunk(plan, sarrs, offset, hi, chunk_size,
-                                         extension, collect, caps_key, stats,
-                                         host_args, drain, dg, params_dev,
-                                         opts, check_cancel)
+                caps[:] = self._run_profiled_chunk(
+                    plan, sarrs, offset, hi, chunk_size, extension, collect,
+                    caps_key, caps, stats, host_args, drain, dg, trace,
+                    params_dev, opts, check_cancel)
             else:
                 pending.append(dispatch(offset, hi))
                 if len(pending) >= max_inflight:
@@ -1629,12 +1785,18 @@ class Executor:
         while pending:
             drain(pending.popleft())
 
-        stats["caps"] = list(self._caps_cache[caps_key])
+        with self._caps_lock:
+            stats["caps"] = list(self._caps_cache[caps_key])
         stats["wall_ms"] = (time.perf_counter() - t_run0) * 1e3
+        # which kernel each step ran through (read by the workload
+        # profiler's kernel-mix accounting)
         stats["step_kernels"] = [
             _step_kernel_name(dg, st, sarrs[si], opts,
                               collect == "count" and si == n_steps - 1)
             for si, st in enumerate(plan.steps)]
+        if trace is not None and n_steps:
+            _annotate_step_spans(trace, plan, dg, sarrs, opts, stats,
+                                 collect, n_src)
         bindings = (np.concatenate(out_b) if out_b else _empty(plan)) \
             if collect == "bindings" else None
         pb = (np.concatenate(out_p) if out_p else _empty_p(plan)) \
@@ -1647,7 +1809,8 @@ class Executor:
     def run_batch(self, plan: ExecPlan, params_mat: np.ndarray,
                   collect: str = "bindings",
                   state: tuple | None = None,
-                  cancel: CancelToken | None = None) -> list[Result]:
+                  cancel: CancelToken | None = None,
+                  trace=None) -> list[Result]:
         """Answer ``B`` same-shape queries in one batch program.
 
         ``params_mat`` (int32 ``[B, plan.n_params]``) stacks one constant
@@ -1665,7 +1828,14 @@ class Executor:
         ids) or whose parameterized start fails its label check return
         empty results without touching the device.  A transient fault in
         the batch program falls back to :meth:`run` per query.  Every step
-        runs unfused, as in the reference's vmapped program."""
+        runs unfused, as in the reference's vmapped program.
+
+        ``trace`` records the batch program's ``compile`` (a build) or
+        ``dispatch`` span (``lanes`` meta), the ``device_wait`` for its one
+        readback, and a ``lane`` span per query (``index``) holding that
+        lane's ``step`` spans, or the spans of its own :meth:`run` when it
+        ran alone.  A batch program is one set of launches for every step,
+        so its step spans carry no time."""
         state = self.pin() if state is None else state
         view, dg = state
         params_mat = np.asarray(params_mat, np.int32)
@@ -1682,8 +1852,13 @@ class Executor:
                           _empty_p(plan), np.zeros(0, np.int32))
 
         def solo(i: int) -> Result:
-            return self.run(plan, collect=collect, state=state,
-                            params=params_mat[i], cancel=cancel)
+            if trace is None:
+                return self.run(plan, collect=collect, state=state,
+                                params=params_mat[i], cancel=cancel)
+            with trace.span("lane", index=i):
+                return self.run(plan, collect=collect, state=state,
+                                trace=trace, params=params_mat[i],
+                                cancel=cancel)
 
         results: list[Result | None] = [None] * n_q
         if plan.unsat:
@@ -1745,18 +1920,23 @@ class Executor:
                          0, n_steps, opts.key(), dg.key(), lanes=lanes,
                          per_lane_start=per_lane_start)
         fn = self._compiled.get(key)
-        if fn is None:
-            fn = build_batch_fn(dg, plan, used, chunk_size, lanes, opts,
-                                collect)
-            self._compiled[key] = fn
+        fresh = fn is None
+        if fresh:
+            built = build_batch_fn(dg, plan, used, chunk_size, lanes, opts,
+                                   collect)
+            fn = self._compiled.setdefault(key, built)
+            fresh = fn is built
         if cancel is not None and cancel.expired:
             raise QueryCancelled(
                 f"query cancelled: {cancel.reason or 'cancelled'}")
         try:
             poison = _faults.fire("dispatch")
-            b, p, org, scalars = fn(
-                self._upload(np.ascontiguousarray(chunk, np.int32)),
-                self._upload(np.ascontiguousarray(params_mat[rows])), sarrs)
+            with (trace.span("compile" if fresh else "dispatch", lanes=lanes)
+                  if trace is not None else contextlib.nullcontext()):
+                b, p, org, scalars = fn(
+                    self._upload(np.ascontiguousarray(chunk, np.int32)),
+                    self._upload(np.ascontiguousarray(params_mat[rows])),
+                    sarrs)
         except Exception as e:  # noqa: BLE001 - filtered just below
             if not is_transient_fault(e):
                 raise
@@ -1764,7 +1944,9 @@ class Executor:
             # one, whose per-run ladder absorbs the fault
             return [results[i] if results[i] is not None else solo(i)
                     for i in range(n_q)]
-        sc = scalars.cpu().numpy()  # the one readback of the batch
+        with (trace.span("device_wait") if trace is not None
+              else contextlib.nullcontext()):
+            sc = scalars.cpu().numpy()  # the one readback of the batch
         count_h = sc[:, 0]
         offs_h = np.concatenate([[0], np.cumsum(count_h)])
         if poison:
@@ -1800,6 +1982,11 @@ class Executor:
                                    ("step_prune_out", pout_h)):
                     if vals[li, si] >= 0:
                         stats[key_][si] = int(vals[li, si])
+            if trace is not None:
+                with trace.span("lane", index=qi):
+                    _annotate_step_spans(trace, plan, dg, sarrs, opts,
+                                         {**stats, "caps": list(used)},
+                                         collect, chunk_size)
             if collect == "bindings":
                 lo = int(offs_h[li])
                 results[qi] = Result(c, b_h[lo:lo + c].copy(),
@@ -1811,66 +1998,79 @@ class Executor:
         return results  # type: ignore[return-value]
 
     def _run_profiled_chunk(self, plan, sarrs, offset, hi, chunk_size,
-                            extension, collect, caps_key, stats, host_args,
-                            drain, dg: DeviceGraph, params_dev,
-                            opts: ExecOpts, check_cancel) -> None:
-        """Step-at-a-time execution of one chunk with device syncs, filling
-        per-step wall times; overflow handling is inherently suffix-resume
-        (each window re-runs alone with a doubled capacity)."""
+                            extension, collect, caps_key, caps, stats,
+                            host_args, drain, dg: DeviceGraph, trace,
+                            params_dev, opts: ExecOpts,
+                            check_cancel) -> list[int]:
+        """Step-at-a-time execution of one chunk, each step timed on its
+        own (:class:`_StepTimer`), filling per-step wall times; overflow
+        handling is inherently suffix-resume (each window re-runs alone
+        with a doubled capacity).  ``caps`` is the run's schedule; returns
+        it with this chunk's growth merged into the shared one."""
         n_steps = len(plan.steps)
-        caps = self._caps_cache[caps_key]
-        args = host_args(offset, hi)
-        state = None
-        stats["chunks"] += 1
-        sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                else (lambda: None))
-        for si in range(n_steps):
-            while True:
-                check_cancel()
-                used = tuple(caps)
-                n_in = chunk_size if si == 0 else used[si - 1]
-                fn, fresh = self._get_fn(plan, used, n_in,
-                                         extension or si > 0,
-                                         collect, si, si + 1, dg, opts)
-                if fresh:
-                    stats["compiles"] += 1
-                poison = _faults.fire("dispatch")
-                sync()
-                t0 = time.perf_counter()
-                if si == 0:
-                    out = fn(*args, params_dev, sarrs)
-                else:
-                    b, p, org, count = state
-                    out = fn(b[:n_in], count, p[:n_in], org[:n_in],
-                             params_dev, sarrs)
-                if poison:
-                    stats["poisoned"] = stats.get("poisoned", 0) + 1
-                    out = _poisoned(out)
-                sync()
-                stats["step_wall_ms"][si] += (time.perf_counter() - t0) * 1e3
-                b, p, org, count, scalars = out
-                sc = scalars.cpu().numpy()
-                if int(sc[1]) >= n_steps:
-                    for key, v in zip(("step_rows", "step_kept",
-                                       "step_prune_in", "step_prune_out"),
-                                      sc[2:6]):
-                        if v >= 0:
-                            stats[key][si] += int(v)
-                    state = (b, p, org, count)
-                    break
-                stats["step_retries"][si] += 1
-                stats["resumes"] += 1
-                _grow_caps(caps, si, opts.max_cap)
-        # hand the finished table to the shared collection path (the -1
-        # counters mean "already accumulated above")
-        b, p, org, count = state
-        scalars = torch.full((2 + 4 * n_steps,), -1, dtype=I64,
-                             device=count.device)
-        scalars[0] = count.to(I64)
-        scalars[1] = n_steps
-        rec = {"out": (b, p, org, count, scalars),
-               "args": args, "caps": tuple(caps), "offset": offset}
-        drain(rec)
+        caps = list(caps)
+        stream = None
+        if self.device.type == "cuda":
+            stream = getattr(self._timing, "stream", None)
+            if stream is None:
+                stream = self._timing.stream = torch.cuda.Stream(
+                    self.device, priority=-1)
+        timer = _StepTimer(self.device, stream)
+        with timer.stream():
+            args = host_args(offset, hi)
+            state = None
+            ci = stats["chunks"]
+            stats["chunks"] += 1
+            for si in range(n_steps):
+                while True:
+                    check_cancel()
+                    used = tuple(caps)
+                    n_in = chunk_size if si == 0 else used[si - 1]
+                    fn, fresh = self._get_fn(plan, used, n_in,
+                                             extension or si > 0,
+                                             collect, si, si + 1, dg, opts)
+                    if fresh:
+                        stats["compiles"] += 1
+                    span = (trace.span("compile" if fresh else "dispatch",
+                                       chunk=ci, step=si)
+                            if trace is not None else contextlib.nullcontext())
+                    with span:
+                        poison = _faults.fire("dispatch")
+                        t0 = timer.start()
+                        if si == 0:
+                            out = fn(*args, params_dev, sarrs)
+                        else:
+                            b, p, org, count = state
+                            out = fn(b[:n_in], count, p[:n_in], org[:n_in],
+                                     params_dev, sarrs)
+                        if poison:
+                            stats["poisoned"] = stats.get("poisoned", 0) + 1
+                            out = _poisoned(out)
+                        stats["step_wall_ms"][si] += timer.stop_ms(t0)
+                    b, p, org, count, scalars = out
+                    sc = scalars.cpu().numpy()
+                    if int(sc[1]) >= n_steps:
+                        for key, v in zip(("step_rows", "step_kept",
+                                           "step_prune_in",
+                                           "step_prune_out"), sc[2:6]):
+                            if v >= 0:
+                                stats[key][si] += int(v)
+                        state = (b, p, org, count)
+                        break
+                    stats["step_retries"][si] += 1
+                    stats["resumes"] += 1
+                    _grow_caps(caps, si, opts.max_cap)
+            caps = self._learn_caps(caps_key, caps)
+            # hand the finished table to the shared collection path (the -1
+            # counters mean "already accumulated above")
+            b, p, org, count = state
+            scalars = torch.full((2 + 4 * n_steps,), -1, dtype=I64,
+                                 device=count.device)
+            scalars[0] = count.to(I64)
+            scalars[1] = n_steps
+            drain({"out": (b, p, org, count, scalars), "args": args,
+                   "caps": tuple(caps), "offset": offset})
+        return caps
 
 
 def _empty(plan: ExecPlan) -> np.ndarray:

@@ -37,6 +37,8 @@ chunk programs and the planner's signature prune probe both run there.
 from __future__ import annotations
 
 import re as _re
+import contextlib
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -53,6 +55,25 @@ from repro_torch.rdf.transform import TransformMaps
 from repro_torch.utils import get_logger
 
 log = get_logger("core.sparql")
+
+_NULL_CM = contextlib.nullcontext()
+
+
+def _maybe_span(trace, name: str, **meta):
+    """A trace span when tracing is on, else a shared no-op context."""
+    return trace.span(name, **meta) if trace is not None else _NULL_CM
+
+
+def _as_trace(trace):
+    """Normalize the public ``trace`` argument: False/None → off, True →
+    a fresh forced trace (profiled steps), a Trace instance → itself."""
+    if trace is None or trace is False:
+        return None
+    if trace is True:
+        from repro_torch.obs import Trace
+
+        return Trace(profile_steps=True)
+    return trace
 
 @dataclass
 class QueryResult:
@@ -207,6 +228,11 @@ class SparqlEngine:
         # parameterized-family compilation accounting (a hit = a query
         # answered by an already-compiled shape plan)
         self.param_stats = CacheStats()
+        # workload feedback: fingerprint -> {"fanouts", "version"} —
+        # observed per-edge fanouts injected into the next compile of
+        # that fingerprint (see apply_feedback / repro_torch.obs.workload)
+        self._feedback: dict[str, dict] = {}
+        self._feedback_lock = threading.Lock()
 
     # ------------------------------------------------------------------ API
     @property
@@ -236,7 +262,44 @@ class SparqlEngine:
                                      policy=prev.policy,
                                      breaker=prev.breaker)
 
-    def compile(self, source: str | SelectQuery):
+    def apply_feedback(self, fingerprint: str, fanouts: dict) -> int:
+        """Install workload-observed per-edge fanouts for a fingerprint
+        and mark its cached plan stale.
+
+        ``fanouts`` maps ``(child, parent, elabel, forward)`` query-vertex
+        keys (stable across recompiles of the same canonical query) to
+        observed ``(surviving, raw)`` expansion factors — the shape
+        :meth:`repro_torch.obs.workload.WorkloadProfile.observed_fanouts`
+        produces.  The next :meth:`compile_canonical` of this fingerprint
+        re-runs order search with those numbers injected into the cost
+        model (plan ``search`` gains a ``+fb<version>`` tag).  Bounded
+        (oldest fingerprints evicted) and versioned; results are
+        unchanged as multisets — only order search and capacity presizing
+        see the feedback.  Returns the new feedback version."""
+        clamp = lambda v: float(min(1e6, max(1e-4, v)))  # noqa: E731
+        clean = {k: (clamp(c), clamp(r)) for k, (c, r) in fanouts.items()}
+        with self._feedback_lock:
+            prev = self._feedback.pop(fingerprint, None)
+            version = (prev["version"] if prev else 0) + 1
+            self._feedback[fingerprint] = {"fanouts": clean,
+                                           "version": version}
+            while len(self._feedback) > 64:
+                self._feedback.pop(next(iter(self._feedback)))
+        self._plan_cache.pop(fingerprint)
+        return version
+
+    def clear_feedback(self) -> None:
+        """Drop all workload feedback (plans recompile without overrides
+        on their next cache miss)."""
+        with self._feedback_lock:
+            self._feedback.clear()
+
+    def feedback_snapshot(self) -> dict[str, int]:
+        """fingerprint -> feedback version, for debug endpoints."""
+        with self._feedback_lock:
+            return {fp: e["version"] for fp, e in self._feedback.items()}
+
+    def compile(self, source: str | SelectQuery, trace=None):
         """Canonicalize + compile through the plan cache.
 
         Returns ``(compiled, canon)`` where ``compiled`` is a (possibly
@@ -246,11 +309,17 @@ class SparqlEngine:
         """
         from repro_torch.serve.fingerprint import canonicalize_query
 
-        ast = parse_sparql(source) if isinstance(source, str) else source
-        canon = canonicalize_query(ast)
-        return self.compile_canonical(canon), canon
+        if isinstance(source, str):
+            with _maybe_span(trace, "parse"):
+                ast = parse_sparql(source)
+        else:
+            ast = source
+        with _maybe_span(trace, "fingerprint"):
+            canon = canonicalize_query(ast)
+        return self.compile_canonical(canon, trace=trace), canon
 
-    def compile_canonical(self, canon, *, with_fresh: bool = False):
+    def compile_canonical(self, canon, *, with_fresh: bool = False,
+                          trace=None):
         """Compile a pre-canonicalized query through the plan cache.
 
         With ``with_fresh=True`` returns ``(compiled, fresh)`` where
@@ -260,8 +329,20 @@ class SparqlEngine:
         concurrent compilation."""
         compiled = self._plan_cache.get(canon.fingerprint)
         fresh = compiled is None
+        if trace is not None:
+            trace.event("plan_cache", hit=not fresh)
         if fresh:
-            compiled = self._compile_ast(canon.query, canon.fingerprint)
+            with _maybe_span(trace, "plan_search") as sp:
+                compiled = self._compile_ast(canon.query, canon.fingerprint)
+                if trace is not None:
+                    sp.meta.update(
+                        plan_ms=round(compiled.plan_ms, 3),
+                        est_rows=round(compiled.estimated_rows(), 1),
+                        branches=[
+                            {"order": explain_plan(br.plan).get("order", []),
+                             "search": br.plan.search,
+                             "est_rows": round(br.plan.estimated_rows(), 1)}
+                            for br in compiled.branches])
             # live store: an unsat verdict is only as old as this snapshot
             # (a later update may intern the missing term), so such queries
             # recompile instead of caching the verdict
@@ -270,7 +351,7 @@ class SparqlEngine:
                 self._plan_cache.put(canon.fingerprint, compiled)
         return (compiled, fresh) if with_fresh else compiled
 
-    def compile_param(self, pq) -> ParamFamily | None:
+    def compile_param(self, pq, trace=None) -> ParamFamily | None:
         """Compile (through the plan cache) the parameterized plan for a
         :class:`~repro_torch.serve.fingerprint.ParamQuery`'s shape.
 
@@ -287,8 +368,13 @@ class SparqlEngine:
         cached = self._plan_cache.get(key)
         if cached is not None:
             self.param_stats.hits += 1
+            if trace is not None:
+                trace.event("param_cache", hit=True,
+                            eligible=cached is not _PARAM_INELIGIBLE)
             return None if cached is _PARAM_INELIGIBLE else cached
         self.param_stats.misses += 1
+        if trace is not None:
+            trace.event("param_cache", hit=False)
         ast = pq.shape_query
         g = ast.where
         if not pq.consts or g.optionals or g.unions:
@@ -298,22 +384,24 @@ class SparqlEngine:
 
         param_ids = {id(t): k
                      for k, t in enumerate(iter_param_occurrences(g))}
-        q = build_query_graph(g.triples, self.maps, param_ids=param_ids)
-        if q.param_missing:
-            # the representative's constant is missing; other members may
-            # resolve, so no verdict is cached
-            return None
-        cheap, expensive = _split_filters(g.filters, q)
-        if q.unsat:
-            # unsat whatever the hoisted constants (a missing predicate or
-            # class): final only on an immutable graph
-            if not getattr(self.graph, "is_snapshot", False):
-                self._plan_cache.put(key, _PARAM_INELIGIBLE)
-            return None
-        plan = build_plan(self.graph, q, estimate=self.estimate,
-                          num_filters=cheap, use_nlf=self.opts.use_nlf,
-                          use_deg=self.opts.use_deg,
-                          use_sig=self.opts.use_prune, device=self.device)
+        with _maybe_span(trace, "plan_search"):
+            q = build_query_graph(g.triples, self.maps, param_ids=param_ids)
+            if q.param_missing:
+                # the representative's constant is missing; other members
+                # may resolve, so no verdict is cached
+                return None
+            cheap, expensive = _split_filters(g.filters, q)
+            if q.unsat:
+                # unsat whatever the hoisted constants (a missing predicate
+                # or class): final only on an immutable graph
+                if not getattr(self.graph, "is_snapshot", False):
+                    self._plan_cache.put(key, _PARAM_INELIGIBLE)
+                return None
+            plan = build_plan(self.graph, q, estimate=self.estimate,
+                              num_filters=cheap, use_nlf=self.opts.use_nlf,
+                              use_deg=self.opts.use_deg,
+                              use_sig=self.opts.use_prune,
+                              device=self.device)
         if (plan.n_params != len(pq.consts)
                 or any(s.restart_candidates is not None and s.param_slot >= 0
                        for s in plan.steps)):
@@ -357,7 +445,7 @@ class SparqlEngine:
                    "exec": {"branches": [{"base": res.stats}]}})
 
     def execute_param(self, family: ParamFamily, consts,
-                      collect: str = "bindings",
+                      collect: str = "bindings", trace=None,
                       cancel: CancelToken | None = None) -> QueryResult:
         """Run one family member: resolve its constant vector and execute
         the shared parameterized plan.  Result columns carry the shape's
@@ -367,9 +455,10 @@ class SparqlEngine:
         state = executor.pin()
         count_only = (collect == "count" and not family.expensive
                       and not family.has_modifiers)
-        res = executor.run(family.plan,
-                           collect="count" if count_only else "bindings",
-                           state=state, params=params, cancel=cancel)
+        with _maybe_span(trace, "execute", branches=1):
+            res = executor.run(
+                family.plan, collect="count" if count_only else "bindings",
+                state=state, trace=trace, params=params, cancel=cancel)
         if count_only:
             return self._param_count_result(family, res)
         return self._finish_param(family, res)
@@ -377,23 +466,27 @@ class SparqlEngine:
     def execute_param_batch(self, family: ParamFamily, const_rows,
                             collect: str = "bindings",
                             cancel: CancelToken | None = None,
-                            ) -> list[QueryResult]:
+                            trace=None) -> list[QueryResult]:
         """Answer ``B`` members of one family in one batch program
         (:meth:`Executor.run_batch`); each result equals what per-member
-        :meth:`execute_param` returns."""
+        :meth:`execute_param` returns.  ``trace`` records an ``execute``
+        span (``lanes`` meta) over the batch program's spans."""
         if not const_rows:
             return []
         if len(const_rows) == 1:
             return [self.execute_param(family, const_rows[0], collect,
-                                       cancel=cancel)]
+                                       trace=trace, cancel=cancel)]
         executor = self.executor
         state = executor.pin()
         mat = np.stack([self.resolve_params(c) for c in const_rows])
         count_only = (collect == "count" and not family.expensive
                       and not family.has_modifiers)
-        results = executor.run_batch(
-            family.plan, mat, collect="count" if count_only else "bindings",
-            state=state, cancel=cancel)
+        with _maybe_span(trace, "execute", branches=1,
+                         lanes=len(const_rows)):
+            results = executor.run_batch(
+                family.plan, mat,
+                collect="count" if count_only else "bindings",
+                state=state, cancel=cancel, trace=trace)
         return [self._param_count_result(family, res) if count_only
                 else self._finish_param(family, res) for res in results]
 
@@ -436,7 +529,7 @@ class SparqlEngine:
 
     def execute_compiled(self, compiled: CompiledQuery,
                          collect: str = "bindings",
-                         profile: bool = False,
+                         profile: bool = False, trace=None,
                          cancel: CancelToken | None = None) -> QueryResult:
         """Run a compiled query; result columns keep its variable names.
 
@@ -447,10 +540,15 @@ class SparqlEngine:
         OFFSET / LIMIT force materialization even for counts — they are
         applied to the assembled table here, after UNION concatenation.
         ``profile=True`` executes with per-step host syncs to fill
-        per-step wall times in the stats.  ``cancel`` (a
-        :class:`repro_torch.resilience.CancelToken`) is threaded into every
-        executor run and checked between branches; on expiry a
-        :class:`QueryCancelled` carries the stats accumulated so far."""
+        per-step wall times in the stats.  ``trace`` records an
+        ``execute`` span with per-branch / per-chunk / per-step children;
+        a forced trace (``profile_steps=True``) implies ``profile``.
+        ``cancel`` (a :class:`repro_torch.resilience.CancelToken`) is
+        threaded into every executor run and checked between branches; on
+        expiry a :class:`QueryCancelled` carries the stats accumulated so
+        far."""
+        if trace is not None and trace.profile_steps:
+            profile = True
         all_rows: list[np.ndarray] = []
         total = 0
         exec_stats: list[dict] = []
@@ -463,42 +561,44 @@ class SparqlEngine:
         # replaces self.executor, so the object itself is captured too
         executor = self.executor
         state = executor.pin()
-        for bi, br in enumerate(compiled.branches):
-            if cancel is not None:
-                cancel.check({"exec": {"branches": exec_stats}})
-            try:
-                rows, count, info = self._exec_branch(
-                    br, collect if not modifiers else "bindings",
-                    profile, executor, state, cancel)
-            except QueryCancelled as e:
-                # enrich with the completed branches' stats so the 504
-                # body can report partial progress
-                e.partial_stats = {
-                    "exec": {"branches": exec_stats
-                             + [{"base": e.partial_stats}]}}
-                raise
-            total += count
-            exec_stats.append(info)
-            base = info.get("base") or {}
-            for est, actual in zip(br.plan.est_rows,
-                                   base.get("step_kept") or []):
-                step_card.append((float(est), int(actual)))
-            if rows is not None:
-                if br.variables != variables:
-                    rows = _align_columns(rows, br.variables, variables)
-                all_rows.append(rows)
-        rows = (np.concatenate(all_rows) if all_rows
-                else np.zeros((0, 0), np.int32))
-        if modifiers:
-            if compiled.distinct:
-                rows = np.unique(rows, axis=0)
-            if compiled.offset:
-                rows = rows[compiled.offset:]
-            if compiled.limit is not None:
-                rows = rows[: compiled.limit]
-            total = int(rows.shape[0])
-        elif collect == "bindings":
-            total = int(rows.shape[0])
+        with _maybe_span(trace, "execute", branches=len(compiled.branches)):
+            for bi, br in enumerate(compiled.branches):
+                if cancel is not None:
+                    cancel.check({"exec": {"branches": exec_stats}})
+                try:
+                    with _maybe_span(trace, "branch", index=bi):
+                        rows, count, info = self._exec_branch(
+                            br, collect if not modifiers else "bindings",
+                            profile, executor, state, trace, cancel)
+                except QueryCancelled as e:
+                    # enrich with the completed branches' stats so the 504
+                    # body can report partial progress
+                    e.partial_stats = {
+                        "exec": {"branches": exec_stats
+                                 + [{"base": e.partial_stats}]}}
+                    raise
+                total += count
+                exec_stats.append(info)
+                base = info.get("base") or {}
+                for est, actual in zip(br.plan.est_rows,
+                                       base.get("step_kept") or []):
+                    step_card.append((float(est), int(actual)))
+                if rows is not None:
+                    if br.variables != variables:
+                        rows = _align_columns(rows, br.variables, variables)
+                    all_rows.append(rows)
+            rows = (np.concatenate(all_rows) if all_rows
+                    else np.zeros((0, 0), np.int32))
+            if modifiers:
+                if compiled.distinct:
+                    rows = np.unique(rows, axis=0)
+                if compiled.offset:
+                    rows = rows[compiled.offset:]
+                if compiled.limit is not None:
+                    rows = rows[: compiled.limit]
+                total = int(rows.shape[0])
+            elif collect == "bindings":
+                total = int(rows.shape[0])
         return QueryResult(list(variables), rows, list(kinds),
                            count=total,
                            stats={"plan_ms": compiled.plan_ms,
@@ -507,24 +607,41 @@ class SparqlEngine:
                                   "step_card": step_card})
 
     def query(self, sparql: str, collect: str = "bindings",
-              timeout_ms: float | None = None,
+              trace=False, timeout_ms: float | None = None,
               cancel: CancelToken | None = None) -> QueryResult:
-        """Evaluate a SPARQL string.  ``timeout_ms`` sets a deadline for
-        this call (raising :class:`repro_torch.resilience.QueryCancelled`
-        on expiry); ``cancel`` passes an externally owned token instead."""
-        return self.query_ast(parse_sparql(sparql), collect=collect,
+        """Evaluate a SPARQL string.  ``trace=True`` forces a full trace
+        (profiled steps) and attaches the finished span tree as
+        ``result.stats["trace"]`` (the :class:`repro_torch.obs.Trace`
+        itself as ``stats["trace_obj"]``); a Trace instance may also be
+        passed to record into an existing trace.  ``timeout_ms`` sets a
+        deadline for this call (raising
+        :class:`repro_torch.resilience.QueryCancelled` on expiry);
+        ``cancel`` passes an externally owned token instead."""
+        t = _as_trace(trace)
+        if t is None:
+            return self.query_ast(parse_sparql(sparql), collect=collect,
+                                  timeout_ms=timeout_ms, cancel=cancel)
+        with t.span("parse"):
+            ast = parse_sparql(sparql)
+        return self.query_ast(ast, collect=collect, trace=t,
                               timeout_ms=timeout_ms, cancel=cancel)
 
     def query_ast(self, ast: SelectQuery, collect: str = "bindings",
-                  timeout_ms: float | None = None,
+                  trace=False, timeout_ms: float | None = None,
                   cancel: CancelToken | None = None) -> QueryResult:
         if cancel is None and timeout_ms is not None:
             cancel = CancelToken(time.monotonic() + timeout_ms / 1e3)
-        compiled, canon = self.compile(ast)
+        t = _as_trace(trace)
+        compiled, canon = self.compile(ast, trace=t)
         if cancel is not None:
             cancel.check()  # deadline may have expired during plan search
-        res = self.execute_compiled(compiled, collect=collect, cancel=cancel)
+        res = self.execute_compiled(compiled, collect=collect, trace=t,
+                                    cancel=cancel)
         res.variables = canon.restore(res.variables)
+        if t is not None:
+            t.finish()
+            res.stats["trace"] = t.to_dict()
+            res.stats["trace_obj"] = t
         return res
 
     def count(self, sparql: str) -> int:
@@ -619,8 +736,18 @@ class SparqlEngine:
 
     # --------------------------------------------------------- compilation
     def _compile_ast(self, ast: SelectQuery, fingerprint: str) -> CompiledQuery:
-        branches = [self._compile_group(g, ast.select)
-                    for g in self._expand_unions(ast.where)]
+        with self._feedback_lock:
+            fb = self._feedback.get(fingerprint)
+        # feedback fanouts are keyed by branch-0 query-vertex indices
+        # (profiles fold branch-0 base stats), so only that branch's base
+        # plan sees them; UNION siblings keep static estimates
+        branches = [self._compile_group(
+                        g, ast.select,
+                        observed=fb["fanouts"] if fb and i == 0 else None)
+                    for i, g in enumerate(self._expand_unions(ast.where))]
+        if fb and branches:
+            p = branches[0].plan
+            p.search = f"{p.search}+fb{fb['version']}"
         first = branches[0] if branches else None
         plan_ms = sum(br.plan.build_ms
                       + sum(co.plan.build_ms for co in br.optionals)
@@ -633,15 +760,15 @@ class SparqlEngine:
             plan_ms=plan_ms,
             distinct=ast.distinct, limit=ast.limit, offset=ast.offset)
 
-    def _compile_group(self, g: GroupPattern,
-                       select: list[str]) -> CompiledBranch:
+    def _compile_group(self, g: GroupPattern, select: list[str],
+                       observed: dict | None = None) -> CompiledBranch:
         q = build_query_graph(g.triples, self.maps)
         cheap, expensive = _split_filters(g.filters, q)
         plan = build_plan(self.graph, q, estimate=self.estimate,
                           num_filters=cheap,
                           use_nlf=self.opts.use_nlf, use_deg=self.opts.use_deg,
                           use_sig=self.opts.use_prune,
-                          device=self.device)
+                          observed_fanout=observed, device=self.device)
         q_all = q
         optionals: list[CompiledOptional] = []
         for og in g.optionals:
@@ -675,7 +802,7 @@ class SparqlEngine:
     # ------------------------------------------------------------ execution
     def _exec_branch(self, br: CompiledBranch, collect: str = "bindings",
                      profile: bool = False, executor=None,
-                     state: tuple | None = None,
+                     state: tuple | None = None, trace=None,
                      cancel: CancelToken | None = None):
         """Run one branch; returns ``(rows | None, count, exec_stats)``."""
         executor = self.executor if executor is None else executor
@@ -683,7 +810,7 @@ class SparqlEngine:
                       and not br.expensive)
         res = executor.run(
             br.plan, collect="count" if count_only else "bindings",
-            profile=profile, state=state, cancel=cancel)
+            profile=profile, state=state, trace=trace, cancel=cancel)
         info: dict = {"base": res.stats}
         if count_only:
             return None, res.count, info
@@ -692,9 +819,11 @@ class SparqlEngine:
                                                  br.q, br.expensive)
         opt_stats: list[dict] = []
         for oi, co in enumerate(br.optionals):
-            table, ptable, ost = self._exec_left_join(table, ptable, co,
-                                                      profile, executor,
-                                                      state, cancel)
+            with _maybe_span(trace, "optional", index=oi):
+                table, ptable, ost = self._exec_left_join(table, ptable, co,
+                                                          profile, executor,
+                                                          state, trace,
+                                                          cancel)
             opt_stats.append(ost)
         if opt_stats:
             info["optionals"] = opt_stats
@@ -734,7 +863,7 @@ class SparqlEngine:
     def _exec_left_join(self, table: np.ndarray, ptable: np.ndarray,
                         co: CompiledOptional, profile: bool = False,
                         executor=None, state: tuple | None = None,
-                        cancel: CancelToken | None = None):
+                        trace=None, cancel: CancelToken | None = None):
         """Left-outer join a compiled OPTIONAL extension onto the table."""
         q_ext, plan, expensive = co.q_ext, co.plan, co.expensive
         nq_ext = q_ext.n_vertices
@@ -750,7 +879,7 @@ class SparqlEngine:
         else:
             executor = self.executor if executor is None else executor
             matched = executor.run(plan, initial=(b0, p0, org0),
-                                   profile=profile, state=state,
+                                   profile=profile, state=state, trace=trace,
                                    cancel=cancel)
         mt, mp, morg = self._apply_expensive(matched.bindings,
                                              matched.pvar_bindings,

@@ -4,7 +4,9 @@ A CPU tensor goes to the plain PyTorch version in :mod:`ref`; a CUDA
 tensor goes to the hand-written Hopper kernel, or the call raises.  Nothing
 else picks the path: no environment switch, no fallback.  Each kernel
 wrapper adds one to ``launches[name]`` where it launches its kernel and
-nowhere else, so a run can show which kernels it went through.
+nowhere else, so a run can show which kernels it went through.  Several
+threads may launch at once (the serving scheduler's workers): the counts
+and the compaction kernel's host-side scratch table change under one lock.
 
 The seven kernels replace the reference's Pallas TPU kernels:
 ``expand_filter_compact``, ``edge_exists``, ``tile_membership``,
@@ -18,6 +20,8 @@ device.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import ref as _ref
@@ -26,6 +30,8 @@ KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
            "bitmap_superset", "signature_filter", "delta_merge",
            "segment_gather")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# guards ``launches``, ``_EFC_SCRATCH`` and ``_PAD`` across threads
+_LOCK = threading.Lock()
 
 # the compaction kernel writes int32 positions, as the reference's int32
 # tables hold them: its one capacity bound
@@ -43,8 +49,9 @@ _EFC_SCRATCH: dict[tuple[int, int], list] = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _LOCK:
+        for k in launches:
+            launches[k] = 0
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -85,7 +92,8 @@ def _launch(name: str, entry: str, *args) -> None:
     err = kernel(entry)(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launches[name] += 1
+    with _LOCK:
+        launches[name] += 1
 
 
 # --------------------------------------------------------------------------
@@ -246,15 +254,16 @@ def _efc_scratch(dev: torch.device, tiles: int) -> torch.Tensor:
     buffer left for a larger one is freed into the caching allocator, which
     hands it out again only after this stream's earlier work."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    entry = _EFC_SCRATCH.get(key)
-    if entry is None or entry[0].shape[0] < tiles + 1:
-        entry = _EFC_SCRATCH[key] = [
-            torch.zeros(tiles + 1, dtype=torch.int64, device=dev), 0]
-    elif entry[1] >= _EFC_EPOCH_PERIOD:
-        entry[0].zero_()
-        entry[1] = 0
-    entry[1] += 1
-    return entry[0]
+    with _LOCK:
+        entry = _EFC_SCRATCH.get(key)
+        if entry is None or entry[0].shape[0] < tiles + 1:
+            entry = _EFC_SCRATCH[key] = [
+                torch.zeros(tiles + 1, dtype=torch.int64, device=dev), 0]
+        elif entry[1] >= _EFC_EPOCH_PERIOD:
+            entry[0].zero_()
+            entry[1] = 0
+        entry[1] += 1
+        return entry[0]
 
 
 def ragged_expand(offsets, degrees, capacity: int):
@@ -283,13 +292,17 @@ _PAD: dict[torch.device, torch.Tensor] = {}
 def _one_slot(a: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
     """An absent (``None``) or zero-length int32 adjacency array reads as
     one slot of -1, as the reference's kernel pads it (every read of it is
-    clamped into range).  The pad is made once per device and only read."""
+    clamped into range).  The pad is made once per device and only read;
+    it is complete before any thread can read it, whatever its stream."""
     if a is not None and a.shape[0]:
         return a
-    pad = _PAD.get(like.device)
-    if pad is None:
-        pad = _PAD[like.device] = torch.full((1,), -1, dtype=torch.int32,
-                                             device=like.device)
+    with _LOCK:
+        pad = _PAD.get(like.device)
+        if pad is None:
+            pad = torch.full((1,), -1, dtype=torch.int32, device=like.device)
+            if pad.is_cuda:
+                torch.cuda.current_stream(like.device).synchronize()
+            _PAD[like.device] = pad
     return pad
 
 

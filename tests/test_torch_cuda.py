@@ -655,3 +655,170 @@ def test_cuda_param_batch_matches_cpu(cuda):
                                  cpu.execute_param(cfam, pq.consts, collect)):
                         assert r.count == want.count
                         np.testing.assert_array_equal(r.rows, want.rows)
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_threads_match_cpu(cuda):
+    """The serving path on the card, the port's first engine run from many
+    threads: a ``DatasetRegistry`` with a static and a live dataset and a
+    ``Scheduler`` with 4 workers, fed by 8 client threads of mixed LUBM
+    queries (some with a forced trace) and family members that batch.
+    Every answer equals the CPU engine's, and every engine kernel of the
+    two paths launched."""
+    import re
+    import sys
+    import threading
+
+    from repro_torch.core import SparqlEngine
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.server import DatasetRegistry
+    from repro_torch.store import VersionedStore
+
+    g, maps = type_aware_transform(
+        generate_lubm(scale=2, seed=0, density=0.6).finalize())
+    store = VersionedStore(g, maps, auto_compact=False)
+    store.apply_update("INSERT DATA { ub:SrvS rdf:type ub:GraduateStudent . "
+                       "ub:SrvS ub:takesCourse ub:GraduateCourse0.Dept0."
+                       "Univ0 . ub:SrvS ub:advisor ub:FullProfessor0.Dept0."
+                       "Univ0 . }")
+    courses = [t for t in maps.dict.terms.to_str
+               if re.match(r"ub:GraduateCourse\d", t)][:16]
+    texts = list(LUBM_QUERIES.values()) + [
+        "SELECT ?x WHERE { ?x rdf:type ub:GraduateStudent . "
+        "?x ub:takesCourse %s . }" % c for c in courses]
+    want = {}
+    for name, graph in (("lubm", g), ("live", store.snapshot())):
+        cpu = SparqlEngine(graph, maps, device="cpu")
+        for t in texts:
+            r = cpu.query(t)
+            want[name, t] = (r.count, sorted(map(tuple, r.rows.tolist())))
+    reg = DatasetRegistry()
+    reg.register("lubm", g, maps)
+    reg.register("live", g, maps, updatable=True, store=store)
+    sched = Scheduler(reg, workers=4, batch_max=64, batch_window_ms=20.0,
+                      metrics=reg.metrics).start()
+    got, errors = [], []
+    start = threading.Barrier(8)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    ops.reset_launches()
+    try:
+        def client(k):
+            try:
+                start.wait(timeout=60)
+                ds = ("lubm", "live")[k % 2]
+                for i, t in enumerate(texts[k:] + texts[:k]):
+                    r = sched.submit(ds, t, timeout_s=300.0,
+                                     trace=(i + k) % 7 == 0)
+                    got.append((ds, t, r.count,
+                                sorted(map(tuple, r.rows.tolist()))))
+            except Exception as e:  # pragma: no cover - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600.0)
+        assert not any(t.is_alive() for t in threads)
+        # the family's members all at once: the first one's 20 ms batch
+        # window gathers the others into one batch program
+        burst = texts[len(LUBM_QUERIES):]
+        together = threading.Barrier(len(burst))
+
+        def member(k):
+            try:
+                together.wait(timeout=60)
+                r = sched.submit("lubm", burst[k], timeout_s=300.0)
+                got.append(("lubm", burst[k], r.count,
+                            sorted(map(tuple, r.rows.tolist()))))
+            except Exception as e:  # pragma: no cover - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=member, args=(k,))
+                   for k in range(len(burst))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600.0)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+        sched.stop()
+    assert not errors, errors[:3]
+    assert len(got) == 8 * len(texts) + len(burst)
+    for ds, t, count, rows in got:
+        assert (count, rows) == want[ds, t], (ds, t)
+    for name in ("expand_filter_compact", "edge_exists", "bitmap_superset",
+                 "signature_filter", "delta_merge"):
+        assert ops.launches[name] > 0, name
+    assert reg.metrics.coalesced_queries.total() >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_profiled_step_time_excludes_other_threads(cuda):
+    """A forced trace times each step on a stream of its own: while another
+    thread keeps the default stream queued with long kernels (each a spin
+    of one thread, so the card's SMs stay free), a device-wide sync waits
+    for them, but a profiled step's time holds its own work only."""
+    import threading
+    import time
+
+    from repro_torch.core import SparqlEngine
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+
+    g, maps = type_aware_transform(
+        generate_lubm(scale=2, seed=0, density=0.6).finalize())
+    eng = SparqlEngine(g, maps)
+    q = LUBM_QUERIES["Q9"]
+    want = SparqlEngine(g, maps, device="cpu").query(q)
+    for _ in range(2):
+        eng.query(q, trace=True)  # build every per-step program
+    spin = 50_000_000  # clock cycles, tens of ms
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    torch.cuda._sleep(spin)
+    e1.record()
+    e1.synchronize()
+    load_ms = e0.elapsed_time(e1)
+    stop = threading.Event()
+
+    def load():
+        done = []
+        while not stop.is_set():
+            torch.cuda._sleep(spin)
+            ev = torch.cuda.Event()
+            ev.record()
+            done.append(ev)
+            if len(done) > 3:
+                done.pop(0).synchronize()
+        torch.cuda.synchronize()
+
+    loader = threading.Thread(target=load)
+    loader.start()
+    try:
+        time.sleep(3 * load_ms / 1e3)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        runs = [eng.query(q, trace=True) for _ in range(3)]
+    finally:
+        stop.set()
+        loader.join(timeout=60.0)
+    assert not loader.is_alive()
+    assert load_ms > 5 and sync_ms > load_ms / 2, (sync_ms, load_ms)
+    for res in runs:
+        assert res.count == want.count
+        np.testing.assert_array_equal(res.rows, want.rows)
+        base = res.stats["exec"]["branches"][0]["base"]
+        steps = base["step_wall_ms"]
+        assert max(steps) < load_ms / 2, (steps, load_ms)
+        spans = res.stats["trace_obj"].find("step")
+        assert [s.meta["kernel"] for s in spans] == base["step_kernels"]
+        assert all(s.meta["model_ms"] > 0 for s in spans)

@@ -44,6 +44,16 @@ t = torch.ones((4, 2))
 i = torch.tensor([0, 5, -1], dtype=torch.int32)
 assert ops.segment_gather_sum(t, i, i.abs(), 2).shape == (2, 2)
 assert ops.segment_gather_fixed(t, i[None]).shape == (1, 2)
+import repro_torch.launch.serve
+import repro_torch.obs
+import repro_torch.obs.report
+from repro_torch.serve.server import DatasetRegistry
+from repro_torch.serve.scheduler import Scheduler
+reg = DatasetRegistry(device="cpu")
+reg.register("lubm", g, maps)
+with Scheduler(reg, workers=2, metrics=reg.metrics) as sched:
+    res = sched.submit("lubm", LUBM_QUERIES["Q2"], trace=True)
+assert res.count > 0 and res.stats["trace"]["root"]["children"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.startswith("jax")
              or m.startswith("jaxlib"))
@@ -97,3 +107,16 @@ def test_entry_points_raise_without_cuda(lubm_graph, monkeypatch):
         Executor(store.snapshot())
     eng = SparqlEngine(store.snapshot(), maps, device="cpu")
     assert eng.count("SELECT ?x WHERE { ?x ub:advisor ub:IsoO . }") == 1
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.server import DatasetRegistry
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DatasetRegistry().register("lubm", tg, maps)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DatasetRegistry().register("live", tg, maps, updatable=True)
+    reg = DatasetRegistry(device="cpu")
+    assert reg.register("lubm", tg, maps).engine.device.type == "cpu"
+    # the launcher fails before it builds a dataset
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--dataset", "lubm", "--scale", "1",
+                           "--queries", "Q1", "--repeat", "1"])
