@@ -102,12 +102,31 @@ Phases, each fatal on failure (no phase's error is caught):
    ``/debug/workload``, ``/debug/slow`` and the small-plan probe's
    verdicts; every answer's count and sorted decoded rows equal phase 5's
    or 5b's (F1's: the CPU run's); requests, QPS and the scheduler's p50 /
-   p99 are printed beside the card's name and power limit.
+   p99 are printed beside the card's name and power limit;
+8. sharded (run after 5c, on phase 5's engine): (a) one NCCL rank, a
+   ``(pod, data, model) = (1, 1, 1)`` mesh: every LUBM query with steps
+   through ``run_sharded``, equal to ``Executor.run`` on the card and to
+   phase 5's CPU count, its warm time beside ``Executor.run``'s; (b)
+   ``engine_chunk_step`` over a one-label random graph the size of LUBM
+   1000 (seed 0) in chunks of its start candidates: the sum equals
+   ``Executor.run`` of the path plan, and one chunk equals its CPU run;
+   (c) "ranks share one card": two gloo ranks
+   (``repro_torch.launch.sharded.spawn_ranks``, mesh (1, 2, 1)) at parity
+   scale, each rank's counts equal ``Executor.run``'s on the card.  It
+   verifies nothing multi-card.  The window holds only (a)'s
+   ``run_sharded`` and (b)'s ``engine_chunk_step`` calls; after it, each
+   kernel's largest call in it is held bit for bit against its plain
+   version, the gap between a one-chunk ``run_sharded`` and
+   ``Executor.run`` is profiled, and ``GreedyChunker`` is held to and
+   timed against the reference's loop.
 
-The run drives five paths, each in its own launch-counting window: the
+The run drives six paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
-closes), the live path (phase 5b's stream, its queries and its family
+closes), the sharded path (phase 8's ``run_sharded`` and
+``engine_chunk_step`` calls; its set-up and checks come before and after
+the window), the live
+path (phase 5b's stream, its queries and its family
 batch on the final snapshot; its checks against the members' own runs, the
 CPU run, the rebuild and the compacted store come after the window
 closes), the serve path (phase 7, its checks included: they read only
@@ -127,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import random
 import re
 import subprocess
@@ -194,6 +214,10 @@ PATH_KERNELS = {
     "gather": ("segment_gather",),
     # phase 7: the static dataset's five and the live dataset's delta_merge
     "serve": ENGINE_KERNELS,
+    # phase 8: run_sharded's chunk programs on the static graph, and
+    # engine_chunk_step's filter and join
+    "sharded": ("expand_filter_compact", "edge_exists", "tile_membership",
+                "bitmap_superset", "signature_filter"),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -1136,8 +1160,10 @@ def run_full(torch, ops, scale: int):
 
     t4 = time.perf_counter()
     cpu = SparqlEngine(g, maps, device="cpu")
+    info["cpu_counts"] = {}
     for name, q in LUBM_QUERIES.items():
         want = cpu.query(q)
+        info["cpu_counts"][name] = int(want.count)
         check(want.count == queries[name]["count"],
               f"{name}: card count {queries[name]['count']} != "
               f"CPU count {want.count}")
@@ -2152,6 +2178,399 @@ def run_serve(torch, ops, static, live, card: str) -> dict:
     return info
 
 
+# ----------------------------------------------------------------- sharded
+
+# the reference's mesh axes; (c)'s gloo ranks, which share the one card
+MESH_AXES = ("pod", "data", "model")
+SHARED_RANKS = 2
+# (b): a one-label random graph the size of LUBM 1000 (its vertices and
+# edges), dealt to engine_chunk_step in chunks of STEP_CHUNK starting
+# vertices at capacity STEP_CAP (about 2.8 times the rows a chunk's third
+# step expects at a mean out-degree of 2.24)
+RANDOM_GRAPH = dict(vertices=2_641_315, edges=5_926_720, seed=0)
+STEP_CHUNK = 1 << 16
+STEP_CAP = 1 << 21
+
+
+def lubm_plans(g, maps, device) -> dict:
+    """Each LUBM query's plan (its basic graph pattern, the reference's
+    sharded test's way), those with steps only."""
+    from repro_torch.core import build_plan, build_query_graph
+    from repro_torch.rdf.sparql import parse_sparql
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+
+    plans = {}
+    for name, text in LUBM_QUERIES.items():
+        q = build_query_graph(parse_sparql(text).where.triples, maps)
+        plan = build_plan(g, q, device=device)
+        if plan.steps:
+            plans[name] = plan
+    return plans
+
+
+def path_graph(n: int, m: int, seed: int):
+    """A random graph with one edge label and every vertex labeled 0, and
+    the path plan ``x0 -> x1 -> x2 -> x3`` in its forced forward order,
+    the shape ``engine_chunk_step`` runs (the reference test's)."""
+    from repro_torch.core import build_plan
+    from repro_torch.core.query import QEdge, QueryGraph, QVertex
+    from repro_torch.rdf.graph import LabeledGraph
+
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    g = LabeledGraph.build(n, src, np.zeros(m, np.int64), dst, 1, [(0,)] * n,
+                           1)
+    q = QueryGraph()
+    for i in range(4):
+        q.vertices.append(QVertex(f"v{i}", labels=(0,)))
+        q.var_to_vertex[f"v{i}"] = i
+    q.edges = [QEdge(0, 1, 0), QEdge(1, 2, 0), QEdge(2, 3, 0)]
+    return g, build_plan(g, q, estimate="static", force_order=[0, 1, 2, 3],
+                         device="cpu")
+
+
+class _Warnings(logging.Handler):
+    """Counts the warnings a logger emits (``run_sharded``'s overflow)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.n = 0
+
+    def emit(self, record) -> None:
+        self.n += 1
+
+
+def reference_partition(n_shards: int, candidates, degree):
+    """The reference's ``GreedyChunker.partition``, verbatim (a Python
+    argmin a candidate): phase 8 holds the port's chunker to it and times
+    both at (a)'s largest candidate set."""
+    est = degree[candidates].astype(np.float64) + 1.0
+    order = np.argsort(-est)  # heaviest first
+    loads = np.zeros(n_shards)
+    shard_of = np.zeros(candidates.shape[0], dtype=np.int32)
+    for idx in order:
+        s = int(np.argmin(loads))
+        shard_of[idx] = s
+        loads[s] += est[idx]
+    shards = [candidates[shard_of == s] for s in range(n_shards)]
+    width = max(1, max(s.shape[0] for s in shards))
+    out = np.full((n_shards, width), -1, dtype=np.int32)
+    counts = np.zeros(n_shards, dtype=np.int32)
+    for s, arr in enumerate(shards):
+        out[s, : arr.shape[0]] = arr
+        counts[s] = arr.shape[0]
+    return out, counts, loads
+
+
+def host_ops(prof) -> dict[str, tuple[float, int]]:
+    """Each operation's self host time (us) and calls in a profile."""
+    return {e.key: (e.self_cpu_time_total, e.count)
+            for e in prof.key_averages()}
+
+
+def profile_gap(torch, sharded, host) -> dict:
+    """One warm ``run_sharded`` and one warm ``Executor.run`` of a query
+    under ``torch.profiler`` (a first profiled run of each is dropped):
+    each one's window, device busy time and kernels, and the host
+    operations whose self time grew most from the second to the first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out, ops_of = {}, {}
+    for label, fn in (("run_sharded", sharded), ("executor", host)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[label] = {"window_us": window_us,
+                      "device_us": sum(e.time_range.elapsed_us()
+                                       for e in dev),
+                      "device_events": len(dev)}
+        ops_of[label] = host_ops(prof)
+    grew = []
+    for name, (us, n) in ops_of["run_sharded"].items():
+        was, m = ops_of["executor"].get(name, (0.0, 0))
+        grew.append((us - was, name, n, m))
+    out["host_ops_grown"] = [
+        {"op": name, "self_us_more": d, "calls": n, "executor_calls": m}
+        for d, name, n, m in sorted(grew, reverse=True)[:8]]
+    return out
+
+
+def plain_kernels(ref) -> dict:
+    """Each engine kernel's plain PyTorch version."""
+    return {"expand_filter_compact": ref.expand_filter_compact_ref,
+            "edge_exists": ref.edge_exists_ref,
+            "tile_membership": ref.tile_membership_ref,
+            "bitmap_superset": ref.bitmap_superset_ref,
+            "signature_filter": ref.signature_filter_ref,
+            "delta_merge": ref.delta_merge_ref}
+
+
+def sharded_phase(torch, ops, ref, static, full: dict, card: str):
+    """Phase 8: sharded execution, in three parts.  Set-up, run here: (c)
+    two gloo ranks in subprocesses share the card at parity scale while
+    the host builds (b)'s graph; the plans, ``Executor.run``'s counts and
+    warm times, and a world-size-1 NCCL group and its mesh.  ``drive``,
+    the launch window's whole content: (a) every LUBM query with steps
+    through ``run_sharded`` (cold, then three warm), and (b)
+    ``engine_chunk_step`` over the random graph's start candidates (two
+    sweeps, then chunk 0).  ``finish(rec)``, after the window: every count
+    against ``Executor.run`` and phase 5's CPU count, chunk 0 against its
+    CPU run, each kernel's largest call in the window (``rec``) against
+    its plain version, the gap between ``run_sharded`` and
+    ``Executor.run`` under ``torch.profiler``, and the port's chunker
+    against the reference's loop.  Returns ``(drive, finish)``."""
+    import threading
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import (Executor, GreedyChunker, engine_chunk_step,
+                                  run_sharded)
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch.sharded import free_port, spawn_ranks
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.transform import type_aware_transform
+
+    g, maps, eng, _ = static
+    t0 = time.perf_counter()
+    info = {"card": card}
+
+    # (c) ranks share one card: the parity-scale graph's plans and host
+    # counts here, the ranks' run_sharded in subprocesses
+    g8, maps8 = type_aware_transform(
+        generate_lubm(scale=8, seed=0, density=0.6).finalize())
+    plans8 = lubm_plans(g8, maps8, "cuda")
+    ex8 = Executor(g8)
+    host8 = {k: ex8.run(p, collect="count").count for k, p in plans8.items()}
+    ranks: dict = {}
+
+    def run_ranks():
+        try:
+            ranks["outs"] = spawn_ranks(g8, plans8, SHARED_RANKS,
+                                        (1, SHARED_RANKS, 1), "cuda",
+                                        backend="gloo", timeout=300)
+        except Exception as e:  # noqa: BLE001 - reported by check below
+            ranks["error"] = f"{type(e).__name__}: {e}"
+
+    t_c = time.perf_counter()
+    thread = threading.Thread(target=run_ranks, name="sharded-ranks")
+    thread.start()
+    t_b = time.perf_counter()
+    bg, bplan = path_graph(RANDOM_GRAPH["vertices"], RANDOM_GRAPH["edges"],
+                           RANDOM_GRAPH["seed"])
+    info["step_graph_build_s"] = time.perf_counter() - t_b
+    thread.join(timeout=360)
+    check(not thread.is_alive(), "phase 8 (c): the ranks' thread hung")
+    check("error" not in ranks, f"phase 8 (c): {ranks.get('error')}")
+    for out in ranks["outs"]:
+        check(out["counts"] == host8,
+              f"phase 8 (c): rank {out['rank']} counts {out['counts']} != "
+              f"the host counts {host8}")
+    info["shared_card"] = {
+        "check": "ranks share one card", "ranks": SHARED_RANKS,
+        "mesh": [1, SHARED_RANKS, 1], "backend": "gloo", "counts": host8,
+        "rank_ms": [out["ms"] for out in ranks["outs"]],
+        "wall_s": time.perf_counter() - t_c}
+    log(f"phase 8 (c), ranks share one card (verifies nothing multi-card): "
+        f"{SHARED_RANKS} gloo ranks, mesh (1, {SHARED_RANKS}, 1), LUBM 8: "
+        f"counts equal Executor.run's {host8}")
+    del g8, maps8, plans8, ex8
+
+    # (b)'s inputs and the executor's count of the path plan
+    host_b = Executor(bg).run(bplan, collect="count").count
+    cands = bplan.start_candidates
+    n_chunks = -(-cands.shape[0] // STEP_CHUNK)
+    padded = np.full(n_chunks * STEP_CHUNK, -1, np.int32)
+    padded[: cands.shape[0]] = cands
+    lens = [min(STEP_CHUNK, cands.shape[0] - i * STEP_CHUNK)
+            for i in range(n_chunks)]
+    step_args = [np.ascontiguousarray(bg.out.nbr_el, np.int32),
+                 np.stack([bg.out.indptr_el[0]] * 3).astype(np.int32),
+                 bg.label_bitmap.view(np.int32)]
+    nbr, iptr, bm = (torch.from_numpy(a).cuda() for a in step_args)
+    chunks = torch.from_numpy(padded.reshape(n_chunks, STEP_CHUNK)).cuda()
+    del bg, bplan
+
+    # (a)'s plans and Executor.run's counts and warm times on the card
+    ex = eng.executor
+    plans = lubm_plans(g, maps, "cuda")
+    queries = {}
+    for name, plan in plans.items():
+        host = ex.run(plan, collect="count").count
+        host_ms = []
+        for _ in range(3):
+            s = time.perf_counter()
+            ex.run(plan, collect="count")
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - s) * 1e3)
+        queries[name] = {"executor_count": host,
+                         "executor_ms": sorted(host_ms)[1],
+                         "start_candidates": int(plan.start_candidates
+                                                 .shape[0])}
+    warned = _Warnings()
+    tdist.log.addHandler(warned)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=MESH_AXES)
+    got: dict = {}
+
+    def sweep():
+        total = torch.zeros((), dtype=torch.int64, device="cuda")
+        ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+        for i in range(n_chunks):
+            c, o = engine_chunk_step(nbr, iptr, bm, chunks[i], lens[i],
+                                     cap=STEP_CAP, n_steps=3)
+            total += c
+            ovf |= o
+        return int(total), bool(ovf)
+
+    def drive() -> None:
+        """(a) and (b): only ``run_sharded`` and ``engine_chunk_step``."""
+        for name, plan in plans.items():
+            n_warn = warned.n
+            q = queries[name]
+            q["count"] = run_sharded(ex, plan, mesh)
+            sharded_ms = []
+            for _ in range(3):
+                s = time.perf_counter()
+                again = run_sharded(ex, plan, mesh)
+                sharded_ms.append((time.perf_counter() - s) * 1e3)
+                check(again == q["count"], f"phase 8 (a): {name} differs "
+                                           f"warm")
+            q["sharded_ms"] = sorted(sharded_ms)[1]
+            q["overflowed"] = warned.n > n_warn
+        got["sweep"] = sweep()
+        s = time.perf_counter()
+        got["sweep2"] = sweep()
+        got["sweep_s"] = time.perf_counter() - s
+        c, o = engine_chunk_step(nbr, iptr, bm, chunks[0], lens[0],
+                                 cap=STEP_CAP, n_steps=3)
+        got["chunk0"] = (int(c), bool(o))
+
+    def finish(rec) -> dict:
+        try:
+            return checks(rec)
+        finally:
+            dist.destroy_process_group()
+            tdist.log.removeHandler(warned)
+
+    def checks(rec) -> dict:
+        for name, q in queries.items():
+            want = full["cpu_counts"][name]
+            check(q["count"] == q["executor_count"] == want,
+                  f"phase 8 (a): {name}: run_sharded {q['count']}, "
+                  f"Executor.run {q['executor_count']}, phase 5's CPU "
+                  f"count {want}")
+            log(f"phase 8 (a) {card}: {name}: count {q['count']} "
+                f"run_sharded {q['sharded_ms']:.3f} ms, Executor.run "
+                f"{q['executor_ms']:.3f} ms (warm medians)"
+                + (" (overflowed: host loop)" if q["overflowed"] else ""))
+        info["nccl"] = {"mesh": [1, 1, 1], "queries": queries}
+
+        total, ovf = got["sweep"]
+        check(got["sweep2"] == got["sweep"], "phase 8 (b): a second sweep "
+                                             "differs")
+        check(not ovf and total == host_b,
+              f"phase 8 (b): engine_chunk_step total {total} (overflow "
+              f"{ovf}) != Executor.run {host_b}")
+        one_cpu = engine_chunk_step(*(torch.from_numpy(a) for a in step_args),
+                                    torch.from_numpy(padded[:STEP_CHUNK]),
+                                    lens[0], cap=STEP_CAP, n_steps=3)
+        check(got["chunk0"] == (int(one_cpu[0]), bool(one_cpu[1])),
+              f"phase 8 (b): chunk 0 on the card {got['chunk0']} != on the "
+              f"CPU {one_cpu}")
+        info["chunk_step"] = {
+            "graph": RANDOM_GRAPH, "start_candidates": int(cands.shape[0]),
+            "chunk": STEP_CHUNK, "cap": STEP_CAP, "chunks": n_chunks,
+            "count": total, "chunk0_count": got["chunk0"][0],
+            "ms_per_chunk": got["sweep_s"] / n_chunks * 1e3}
+        log(f"phase 8 (b) {card}: engine_chunk_step over {n_chunks} chunks "
+            f"of {STEP_CHUNK}: {total} paths equal Executor.run, "
+            f"{info['chunk_step']['ms_per_chunk']:.3f} ms per chunk (warm "
+            f"sweep, host clock); chunk 0 {got['chunk0'][0]} equals its CPU "
+            f"run")
+
+        # each kernel's largest call in the window against its plain
+        # version, bit for bit (engine_chunk_step's are 2^21 slots)
+        plains = plain_kernels(ref)
+        info["largest_calls"] = {}
+        for name in PATH_KERNELS["sharded"]:
+            check(name in rec.calls, f"phase 8: no {name} call recorded")
+            rows, args, kw = rec.calls[name]
+            err = max_abs_err(torch, getattr(ops, name)(*args, **kw),
+                              plains[name](*args, **kw))
+            check(err == 0, f"phase 8: {name} differs from its plain "
+                            f"version at the sharded path's largest call "
+                            f"{rows}")
+            info["largest_calls"][name] = {"rows": list(rows),
+                                           "max_abs_err": err}
+        log(f"phase 8: the largest call of each kernel in the window equals "
+            f"its plain version: {info['largest_calls']}")
+
+        # where a one-chunk query's extra time goes: the three largest gaps
+        gaps = sorted((q["sharded_ms"] - q["executor_ms"], name)
+                      for name, q in queries.items() if not q["overflowed"])
+        info["gap_profiles"] = {}
+        for _, name in gaps[-3:]:
+            plan = plans[name]
+            prof = profile_gap(torch, lambda: run_sharded(ex, plan, mesh),
+                               lambda: ex.run(plan, collect="count"))
+            d = GreedyChunker(1)
+            cand = plan.start_candidates
+            part = []
+            for _ in range(5):
+                s = time.perf_counter()
+                d.partition(cand, ex.graph.out.degree)
+                part.append((time.perf_counter() - s) * 1e3)
+            prof["partition_ms"] = sorted(part)[2]
+            info["gap_profiles"][name] = prof
+            log(f"phase 8 (a) {card}: {name} profiled: run_sharded window "
+                f"{prof['run_sharded']['window_us']:.0f} us, device "
+                f"{prof['run_sharded']['device_us']:.0f} us; Executor.run "
+                f"{prof['executor']['window_us']:.0f} us, device "
+                f"{prof['executor']['device_us']:.0f} us; partition "
+                f"{prof['partition_ms']:.3f} ms; host ops grown most: "
+                + ", ".join(f"{o['op']} +{o['self_us_more']:.0f} us "
+                            f"({o['calls']} vs {o['executor_calls']})"
+                            for o in prof["host_ops_grown"][:4]))
+
+        # the port's chunker against the reference's loop at (a)'s largest
+        # candidate set
+        big = max(plans, key=lambda k: plans[k].start_candidates.shape[0])
+        cand, deg = plans[big].start_candidates, ex.graph.out.degree
+        info["chunker"] = {"query": big, "candidates": int(cand.shape[0])}
+        for n in (1, 8):
+            s = time.perf_counter()
+            want = reference_partition(n, cand, deg)
+            loop_ms = (time.perf_counter() - s) * 1e3
+            s = time.perf_counter()
+            mine = GreedyChunker(n).partition(cand, deg)
+            port_ms = (time.perf_counter() - s) * 1e3
+            for a, b in zip(mine, want):
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"phase 8: GreedyChunker({n}) differs from the "
+                      f"reference's loop on {big}'s candidates")
+            info["chunker"][f"shards_{n}"] = {"reference_loop_ms": loop_ms,
+                                              "port_ms": port_ms}
+            log(f"phase 8 (a): partition of {big}'s {cand.shape[0]} "
+                f"candidates over {n} shard(s): the reference's loop "
+                f"{loop_ms:.3f} ms, the port's {port_ms:.3f} ms (host "
+                f"clock; equal outputs)")
+        info["total_s"] = time.perf_counter() - t0
+        log(f"phase 8: {info['total_s']:.1f} s")
+        return info
+
+    return drive, finish
+
+
 def profile_queries(torch, eng) -> dict:
     """Phases 5 and 5b, outside the launch windows: the CUDA kernels one
     warm run of each of ``PROFILED`` launches on ``eng``, and the device's
@@ -2177,14 +2596,8 @@ def kernel_table(torch, ops, ref, rec: Recorder,
                  by_path: dict[str, dict]) -> list:
     """Phase 6: each kernel at the main path's largest shapes.
     ``by_path`` holds each path's launch counts."""
-    plains = {
-        "expand_filter_compact": ref.expand_filter_compact_ref,
-        "edge_exists": ref.edge_exists_ref,
-        "tile_membership": ref.tile_membership_ref,
-        "bitmap_superset": ref.bitmap_superset_ref,
-        "signature_filter": ref.signature_filter_ref,
-        "delta_merge": ref.delta_merge_ref,
-    }
+    plains = plain_kernels(ref)
+
     def timed_call(name, rows, args, kw) -> dict:
         kern = getattr(ops, name)
         got = kern(*args, **kw)
@@ -2468,17 +2881,18 @@ def main(argv=None) -> int:
     rec = Recorder(ops)
     by_path: dict[str, dict] = {}
 
-    def window(path: str, drive, record: bool = True):
+    def window(path: str, drive, recorder: Recorder | None = rec):
         """Drive one path with the launch counters set to 0 just before and
         read just after; each kernel of the path must have launched.
-        ``record`` keeps the path's calls for phase 6."""
-        if record:
-            rec.install(path)
+        ``recorder`` (phase 6's by default) keeps the path's calls."""
+        if recorder is not None:
+            recorder.install(path)
         ops.reset_launches()
         out = drive()
         torch.cuda.synchronize()
         by_path[path] = dict(ops.launches)
-        rec.remove()
+        if recorder is not None:
+            recorder.remove()
         log(f"{path} path launches: {by_path[path]}")
         for name in PATH_KERNELS[path]:
             check(by_path[path][name] > 0,
@@ -2492,6 +2906,11 @@ def main(argv=None) -> int:
     params, finish = window("params", lambda: run_params(torch, ops,
                                                          *static))
     finish()
+    drive, finish = sharded_phase(torch, ops, ref, static, full, card)
+    rec8 = Recorder(ops)  # the sharded path's largest calls, for phase 8
+    window("sharded", drive, recorder=rec8)
+    sharded = finish(rec8)
+    del drive, rec8
     g, maps, cpu = static[0], static[1], static[3]  # the card's engine goes
     del static, finish
     live, finish, compacted, served = window(
@@ -2499,7 +2918,7 @@ def main(argv=None) -> int:
     finish()
     del st, finish
     serve = window("serve", lambda: run_serve(
-        torch, ops, (g, maps, answers, cpu), served, card), record=False)
+        torch, ops, (g, maps, answers, cpu), served, card), recorder=None)
     compacted()
     del g, maps, answers, cpu, served, compacted
     inputs = gather_inputs(torch)
@@ -2521,6 +2940,7 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "serve": serve,
+              "sharded": sharded,
               "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}

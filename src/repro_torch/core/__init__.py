@@ -1,3 +1,5 @@
+from repro_torch.core.distributed import (GreedyChunker, engine_chunk_step,
+                                          run_sharded)
 from repro_torch.core.exec import DeviceGraph, ExecOpts, Executor, Result
 from repro_torch.core.planner import (CostModel, ExecPlan, PlanError,
                                       build_plan, choose_start_vertex)
@@ -23,4 +25,7 @@ __all__ = [
     "CompiledQuery",
     "CompiledBranch",
     "CompiledOptional",
+    "GreedyChunker",
+    "engine_chunk_step",
+    "run_sharded",
 ]

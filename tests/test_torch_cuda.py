@@ -822,3 +822,127 @@ def test_cuda_profiled_step_time_excludes_other_threads(cuda):
         spans = res.stats["trace_obj"].find("step")
         assert [s.meta["kernel"] for s in spans] == base["step_kernels"]
         assert all(s.meta["model_ms"] > 0 for s in spans)
+
+
+# ------------------------------------------------------- sharded execution
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world of one NCCL rank and its (pod, data, model) = (1, 1, 1)
+    mesh (NCCL refuses two ranks on one card)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.sharded import free_port
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1, 1),
+                               mesh_dim_names=("pod", "data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_run_sharded_nccl_matches_executor(nccl_mesh):
+    """Every LUBM query (scale 1) through ``run_sharded`` on the card
+    equals ``Executor.run`` on the card and on the CPU."""
+    from repro_torch.core import (ExecOpts, Executor, build_plan,
+                                  build_query_graph, run_sharded)
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.sparql import parse_sparql
+    from repro_torch.rdf.transform import type_aware_transform
+    from repro_torch.rdf.workloads import LUBM_QUERIES
+
+    g, maps = type_aware_transform(
+        generate_lubm(scale=1, seed=0, density=0.3).finalize())
+    gpu = Executor(g, ExecOpts())
+    cpu = Executor(g, ExecOpts(), device="cpu")
+    ops.reset_launches()
+    for name, text in LUBM_QUERIES.items():
+        q = build_query_graph(parse_sparql(text).where.triples, maps)
+        plan = build_plan(g, q, device="cpu")
+        got = run_sharded(gpu, plan, nccl_mesh)
+        assert got == gpu.run(plan, collect="count").count == \
+            cpu.run(plan, collect="count").count, name
+    assert ops.launches["expand_filter_compact"] > 0
+
+
+def _path_step_inputs(seed, n, m):
+    from repro_torch.core import build_plan
+    from repro_torch.core.query import QEdge, QueryGraph, QVertex
+    from repro_torch.rdf.graph import LabeledGraph
+
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    g = LabeledGraph.build(n, src, np.zeros(m, np.int64), dst, 1, [(0,)] * n,
+                           1)
+    q = QueryGraph()
+    for i in range(4):
+        q.vertices.append(QVertex(f"v{i}", labels=(0,)))
+        q.var_to_vertex[f"v{i}"] = i
+    q.edges = [QEdge(0, 1, 0), QEdge(1, 2, 0), QEdge(2, 3, 0)]
+    plan = build_plan(g, q, estimate="static", force_order=[0, 1, 2, 3],
+                      device="cpu")
+    arrays = (np.ascontiguousarray(g.out.nbr_el, np.int32),
+              np.stack([g.out.indptr_el[0]] * 3).astype(np.int32),
+              g.label_bitmap.view(np.int32))
+    return g, plan, arrays
+
+
+@pytest.mark.cuda
+def test_cuda_engine_chunk_step_matches_cpu_and_executor(cuda):
+    """Chunk by chunk, the step on the card equals its CPU run, through
+    the card's bitmap_superset and edge_exists; summed, it equals the
+    executor's path count on the card."""
+    from repro_torch.core import ExecOpts, Executor, engine_chunk_step
+
+    g, plan, arrays = _path_step_inputs(0, 50_000, 120_000)
+    want = Executor(g, ExecOpts()).run(plan, collect="count").count
+    on_card = [tt(a, cuda) for a in arrays]
+    on_cpu = [torch.from_numpy(a) for a in arrays]
+    cands = plan.start_candidates
+    total = 0
+    ops.reset_launches()
+    for lo in range(0, cands.shape[0], 4096):
+        chunk = np.full(4096, -1, np.int32)
+        part = cands[lo:lo + 4096]
+        chunk[: part.shape[0]] = part
+        c, o = engine_chunk_step(*on_card, tt(chunk, cuda), part.shape[0],
+                                 cap=1 << 17, n_steps=3)
+        cc, oc = engine_chunk_step(*on_cpu, torch.from_numpy(chunk),
+                                   part.shape[0], cap=1 << 17, n_steps=3)
+        assert c.is_cuda and (int(c), bool(o)) == (int(cc), bool(oc)), lo
+        assert not bool(o)
+        total += int(c)
+    assert total == want
+    assert ops.launches["bitmap_superset"] > 0
+    assert ops.launches["edge_exists"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_timed_waits_for_nested_results(cuda):
+    """``timed`` waits for the card's work behind a result nested in a
+    dict, a list and an executor ``Result``: each call's time covers a
+    spin of about 20 ms, not only its enqueue."""
+    import time
+
+    from repro_torch.core.exec import Result
+    from repro_torch.utils import timed
+
+    x = torch.ones(4, device=cuda)
+
+    def work():
+        torch.cuda._sleep(1 << 25)
+        return {"out": [Result(1, None, None, stats={"t": x + 1})]}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    work()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = time.perf_counter() - t0
+    res, sec = timed(work, repeats=3, warmup=1)
+    assert float(res["out"][0].stats["t"].sum()) == 8.0
+    assert sec > spin / 2 > enqueue, (sec, spin, enqueue)

@@ -159,3 +159,170 @@ def test_planner_same_plan(name, qname, engines, request):
         for chunk in (1, 64, 8192):
             assert plan.capacity_schedule(chunk, 4096, 1 << 22) == \
                 rplan.capacity_schedule(chunk, 4096, 1 << 22)
+
+
+# ------------------------------------------------------------------ parser
+NT_LINES = [
+    "<http://a> <http://p> <http://b> .",
+    'ub:x ub:name "hello world" .',
+    'a:s a:p "v"^^<http://int> .',
+    'a:s a:p "v"@en .',
+    r'a:s a:p "say \"hi\" now" .',
+    "# comment",
+    "   ",
+    "_:b0 a:p a:o.",
+    "\ta:s\t a:p a:o  .",
+    "a:s a:p a:o",
+    "a:s a:p a:o .",  # a duplicate: set semantics
+]
+NT_BAD = [
+    "<unterminated iri-less",
+    'a:s a:p "no end',
+    "a:s a:p",
+    "a:s a:p a:o . trailing",
+    'a:s a:p "v"^^<http://int .',
+    "a:s a:p .",
+]
+
+
+def _decoded(store):
+    store.finalize()
+    return (sorted(store.iter_decoded()), store.n_triples,
+            len(store.dict.terms), len(store.dict.predicates))
+
+
+def test_parser_lines_match_reference():
+    from repro.rdf import parser as ref_parser
+    from repro_torch.rdf import parser
+
+    for i, line in enumerate(NT_LINES + NT_BAD, start=1):
+        try:
+            want = ref_parser.parse_line(line, i)
+        except ref_parser.ParseError as e:
+            with pytest.raises(parser.ParseError) as got:
+                parser.parse_line(line, i)
+            assert str(got.value) == str(e), line
+        else:
+            assert parser.parse_line(line, i) == want, line
+
+
+@pytest.mark.parametrize("at", [0, 3, len(NT_LINES)])
+@pytest.mark.parametrize("bad", NT_BAD)
+def test_parser_strict_and_lenient_match_reference(bad, at):
+    """Strict mode raises the reference's ``ParseError`` (with its line
+    number); lenient mode skips the line with the reference's
+    ``ParseStats`` and store."""
+    from repro.rdf import parser as ref_parser
+    from repro_torch.rdf import parser
+
+    lines = NT_LINES[:at] + [bad] + NT_LINES[at:]
+    with pytest.raises(ref_parser.ParseError) as want:
+        ref_parser.parse_ntriples(lines)
+    with pytest.raises(parser.ParseError) as got:
+        parser.parse_ntriples(lines)
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith(f"line {at + 1}:")
+    store, stats = parser.parse_ntriples(lines, strict=False)
+    rstore, rstats = ref_parser.parse_ntriples(lines, strict=False)
+    assert dataclasses.asdict(stats) == dataclasses.asdict(rstats)
+    assert stats.skipped == 1 and stats.lines == len(lines)
+    assert _decoded(store) == _decoded(rstore)
+
+
+def test_parser_serialize_round_trip_matches_reference():
+    from repro.rdf import parser as ref_parser
+    from repro_torch.rdf import parser
+
+    triples = [("ub:s", "ub:p", "ub:o"), ("http://a", "http://p", '"lit 1"'),
+               ("_:b1", "http://p", '"v"@en'), ("x", "ub:q", "y")]
+    lines = list(parser.serialize_ntriples(triples))
+    assert lines == list(ref_parser.serialize_ntriples(triples))
+    store, stats = parser.parse_ntriples(lines)
+    rstore, rstats = ref_parser.parse_ntriples(lines)
+    assert stats == parser.ParseStats(lines=4, triples=4, skipped=0)
+    assert dataclasses.asdict(stats) == dataclasses.asdict(rstats)
+    assert _decoded(store) == _decoded(rstore)
+    assert _decoded(store)[0] == sorted(triples)
+
+
+# ------------------------------------------------------------------ oracle
+@pytest.mark.parametrize("semantics", ["hom", "iso"])
+@pytest.mark.parametrize("seed", range(4))
+def test_enumerate_matches_matches_reference(seed, semantics):
+    """The brute-force oracle on seeded random graphs and query graphs
+    (labels, bound ids, predicate variables, cycle edges), both packages
+    on the same graph."""
+    from conftest import random_labeled_graph, random_query_graph
+    from repro.core.reference import enumerate_matches as ref_enumerate
+    from repro_torch.convert import _query_from_fields, graph_from_arrays
+    from repro_torch.core.reference import enumerate_matches
+
+    rng = np.random.default_rng(100 + seed)
+    rg = random_labeled_graph(rng, n_vertices=9, p_edge=0.35)
+    g = graph_from_arrays(graph_fields(rg))
+    for k in range(3):
+        rq = random_query_graph(np.random.default_rng(1000 * seed + k), rg,
+                                n_qv=3, with_pvar=k == 2)
+        q = _query_from_fields(plan_fields(rq))
+        got = enumerate_matches(g, q, semantics)
+        assert got == ref_enumerate(rg, rq, semantics), (seed, k)
+
+
+# ------------------------------------------------------------------ timing
+def test_timed_and_timer_match_reference(monkeypatch):
+    """``timed`` drops the best and worst of its repeats as the
+    reference's does (on the same clock readings), calls the function
+    warmup + repeats times, and returns its last result; ``Timer``
+    accumulates per span."""
+    import repro.utils.timing as ref_timing
+    from repro_torch.utils import Timer, timed
+    from repro_torch.utils import timing
+
+    ticks = [0.0, 0.5, 1.0, 1.2, 2.0, 2.9, 3.0, 3.1, 4.0, 4.7]
+    for mod in (timing, ref_timing):
+        clock = iter(ticks)
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
+        calls = []
+        res, sec = mod.timed(lambda x: calls.append(x) or len(calls), 7,
+                             repeats=5, warmup=2)
+        assert (res, len(calls)) == (7, 7)
+        # repeats took 0.5, 0.2, 0.9, 0.1, 0.7: the middle three average
+        assert sec == pytest.approx((0.5 + 0.7 + 0.2) / 3, abs=1e-12)
+        monkeypatch.undo()
+    assert timed is timing.timed
+    t = Timer()
+    for name in ("a", "b", "a"):
+        with t.span(name):
+            pass
+    assert t.counts == {"a": 2, "b": 1}
+    assert t.mean("a") >= 0.0 and t.mean("missing") == 0.0
+    assert sorted(line.split()[0] for line in t.report().splitlines()) == \
+        ["a", "b"]
+
+
+def test_timed_blocks_on_nested_cuda_results_only():
+    """``_block`` finds tensors inside tuples, lists, dicts and dataclass
+    fields (an executor ``Result``); CPU tensors need no wait."""
+    import torch
+
+    from repro_torch.core.exec import Result
+    from repro_torch.utils.timing import _block, _cuda_devices
+
+    cpu = torch.zeros(3)
+    res = Result(1, None, None, stats={"t": [cpu, (cpu,)]})
+    assert _cuda_devices(({"a": [res]}, cpu, 3, "x"), set()) == set()
+    _block(({"a": [res]}, cpu))
+
+
+# ------------------------------------------------------------------ plan shim
+def test_plan_shim_names_resolve_to_the_port_planner():
+    import repro.core.plan as ref_shim
+    from repro_torch.core import plan as shim
+    from repro_torch.core import planner
+    from repro_torch.core.planner import builder
+
+    assert shim.__all__ == ref_shim.__all__
+    for name in shim.__all__:
+        assert getattr(shim, name) is getattr(planner, name), name
+    assert shim._np_cmp is planner.np_cmp
+    assert shim._nlf_masks is builder._nlf_masks

@@ -45,6 +45,12 @@ i = torch.tensor([0, 5, -1], dtype=torch.int32)
 assert ops.segment_gather_sum(t, i, i.abs(), 2).shape == (2, 2)
 assert ops.segment_gather_fixed(t, i[None]).shape == (1, 2)
 import repro_torch.launch.serve
+import repro_torch.launch.sharded
+import repro_torch.core.distributed
+import repro_torch.core.plan
+import repro_torch.core.reference
+import repro_torch.rdf.parser
+import repro_torch.utils.timing
 import repro_torch.obs
 import repro_torch.obs.report
 from repro_torch.serve.server import DatasetRegistry

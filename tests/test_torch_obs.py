@@ -33,7 +33,10 @@ from repro.obs import WorkloadProfiler as RefProfiler  # noqa: E402
 from repro.obs import chrome_trace as ref_chrome_trace  # noqa: E402
 from repro.obs.report import build_report as ref_build_report  # noqa: E402
 from repro.obs.report import render_markdown as ref_render  # noqa: E402
+from repro.rdf.generator import generate_lubm as ref_generate_lubm  # noqa: E402
 from repro.rdf.sparql import parse_sparql as ref_parse  # noqa: E402
+from repro.rdf.transform import \
+    type_aware_transform as ref_type_aware_transform  # noqa: E402
 from repro.rdf.workloads import LUBM_QUERIES  # noqa: E402
 from repro.serve.fingerprint import canonicalize_query as ref_canon  # noqa: E402
 from repro.serve.fingerprint import parameterize_query as ref_pq  # noqa: E402
@@ -60,8 +63,13 @@ TIME_KEYS = {"t0_ms", "dur_ms", "span_sum_ms", "plan_ms", "wall_ms_total",
 
 
 @pytest.fixture(scope="module")
-def world(lubm_graph):
-    rg, rmaps = lubm_graph
+def world():
+    """Both packages' LUBM graph and maps, each built here: the session's
+    ``lubm_graph`` maps can be grown by an earlier test (a store interns
+    its new terms into them), and these tests compare what the maps
+    decode."""
+    rg, rmaps = ref_type_aware_transform(
+        ref_generate_lubm(scale=1, seed=0, density=0.3).finalize())
     g, maps = type_aware_transform(
         generate_lubm(scale=1, seed=0, density=0.3).finalize())
     return (g, maps), (rg, rmaps)

@@ -108,9 +108,13 @@ def _strip_times(obj):
 
 
 @pytest.fixture(scope="module")
-def world(lubm_graph):
-    """Both engines on the same graph, and the term pools."""
-    rg, rmaps = lubm_graph
+def world():
+    """Both engines on the same graph, and the term pools.  Each package's
+    graph and maps are built here: the session's ``lubm_graph`` maps can be
+    grown by an earlier test (a store interns its new terms into them),
+    and the batches resolve their constants through the maps."""
+    rg, rmaps = ref_type_aware_transform(
+        ref_generate_lubm(scale=1, seed=0, density=0.3).finalize())
     g, maps = type_aware_transform(
         generate_lubm(scale=1, seed=0, density=0.3).finalize())
     terms = maps.dict.terms.to_str
@@ -274,8 +278,8 @@ def test_forced_overflow_lane_reruns_alone(world):
 def test_param_batch_on_versioned_snapshot(world):
     """A family batch on a live snapshot (every step ``delta_merge``).  A
     store interns new terms into the maps it is given, so both packages
-    get fresh graphs and maps here (the shared ``lubm_graph`` maps may already
-    have grown in another test)."""
+    get fresh graphs and maps here (the module's ``world`` maps serve the
+    other tests of this file)."""
     pools = world[2]
     rg, rmaps = ref_type_aware_transform(
         ref_generate_lubm(scale=1, seed=0, density=0.3).finalize())

@@ -28,6 +28,9 @@ from repro.core import SparqlEngine as RefEngine  # noqa: E402
 from repro.core import exec as ref_exec  # noqa: E402
 from repro.core.sparql_exec import QueryResult as RefResult  # noqa: E402
 from repro.obs import Trace as RefTrace  # noqa: E402
+from repro.rdf.generator import generate_lubm as ref_generate_lubm  # noqa: E402
+from repro.rdf.transform import \
+    type_aware_transform as ref_type_aware_transform  # noqa: E402
 from repro.rdf.workloads import LUBM_QUERIES  # noqa: E402
 from repro.serve import cache as ref_cache  # noqa: E402
 from repro.serve import metrics as ref_metrics  # noqa: E402
@@ -64,8 +67,14 @@ COMPILE_HELP = "# HELP repro_compile_events_total "
 
 
 @pytest.fixture(scope="module")
-def world(lubm_graph):
-    rg, rmaps = lubm_graph
+def world():
+    """Both packages' LUBM graph and maps, each built here.  The session's
+    ``lubm_graph`` maps can be grown by any earlier test (a store interns
+    its new terms into them, and the reference's store then resumes from
+    the grown id space), and these tests compare vertex counts, ids and
+    bodies."""
+    rg, rmaps = ref_type_aware_transform(
+        ref_generate_lubm(scale=1, seed=0, density=0.3).finalize())
     g, maps = type_aware_transform(
         generate_lubm(scale=1, seed=0, density=0.3).finalize())
     return (g, maps), (rg, rmaps)
@@ -471,15 +480,89 @@ def test_http_forced_trace_matches_reference(servers):
     assert steps and gt["profiled"] and gt["dataset"] == "lubm"
 
 
+# the reference scheduler's two deadline texts: the waiter's own timeout,
+# and a worker failing a flight whose deadline passed while it was queued
+WAITED_OUT = "no result within 0.001s"
+EXPIRED_QUEUED = "expired while queued (admission backlog)"
+
+
 def test_http_deadline_on_uncompiled_query_is_504(servers):
     """A deadline of 1 ms on a query not compiled yet: 504 from both,
     whether it expired while queued or while it ran (the wall clock
-    decides which, and so what the journal and counters saw: this runs
-    after every comparison of them)."""
+    decides which, and so which of the scheduler's two deadline texts the
+    body carries and what the journal and counters saw: this runs after
+    every comparison of them)."""
     path = _q(LUBM_QUERIES["Q5"], timeout_ms=1)
     got, want = (_request(s, "GET", path) for s in servers)
     assert got[0] == want[0] == 504
-    assert got[2]["error"].startswith("no result within 0.001s")
+    for body in (got[2], want[2]):
+        msg = body["error"]
+        assert msg.startswith(WAITED_OUT) or msg == EXPIRED_QUEUED, msg
+    assert set(got[2]) == set(want[2])
+
+
+def _expire_in_queue(srv, path):
+    """Send ``path`` while every scheduler worker is held inside an
+    execution, and hold the submitting thread just after it queued its
+    flight: the deadline passes in the queue, the workers are freed, one
+    of them fails the expired flight, and only then does the submitter
+    wait for it.  Returns the response."""
+    sched = srv.scheduler
+    reg = sched.registry
+    n = sched._n_workers
+    release, armed = threading.Event(), threading.Event()
+    entered = threading.Semaphore(0)
+    mp = pytest.MonkeyPatch()
+
+    def held(fn):
+        def run(*args, **kwargs):
+            entered.release()
+            assert release.wait(60), "the held workers were never freed"
+            return fn(*args, **kwargs)
+        return run
+
+    gauge = sched.metrics.inflight
+    inc = gauge.inc
+
+    def inc_after_queueing(amount=1.0):
+        if amount > 0 and armed.is_set():
+            armed.clear()
+            time.sleep(0.05)  # the 1 ms deadline passes in the queue
+            release.set()
+            t_end = time.monotonic() + 60
+            while sched._inflight and time.monotonic() < t_end:
+                time.sleep(0.005)
+        inc(amount)
+
+    mp.setattr(reg, "execute_canonical", held(reg.execute_canonical))
+    mp.setattr(reg, "execute_canonical_batch",
+               held(reg.execute_canonical_batch))
+    mp.setattr(gauge, "inc", inc_after_queueing)
+    holders = [threading.Thread(target=sched.submit, args=(
+        "lubm", LUBM_QUERIES[name]), kwargs={"timeout_s": 60})
+        for name in ("Q1", "Q3", "Q4", "Q7")[:n]]
+    try:
+        for t in holders:
+            t.start()
+        for _ in range(n):
+            assert entered.acquire(timeout=60), "a worker never took work"
+        armed.set()
+        return _request(srv, "GET", path)
+    finally:
+        release.set()
+        for t in holders:
+            t.join(timeout=60)
+        mp.undo()
+        assert not any(t.is_alive() for t in holders)
+
+
+def test_http_deadline_expired_in_queue_is_504(servers):
+    """With the workers held, a 1 ms request certainly expires while
+    queued: both servers answer 504 with the queue's deadline text."""
+    path = _q(LUBM_QUERIES["Q5"], timeout_ms=1)
+    got, want = (_expire_in_queue(s, path) for s in servers)
+    assert got[0] == want[0] == 504
+    assert got[2]["error"] == want[2]["error"] == EXPIRED_QUEUED
     assert set(got[2]) == set(want[2])
 
 
