@@ -118,9 +118,36 @@ Phases, each fatal on failure (no phase's error is caught):
    kernel's largest call in it is held bit for bit against its plain
    version, the gap between a one-chunk ``run_sharded`` and
    ``Executor.run`` is profiled, and ``GreedyChunker`` is held to and
-   timed against the reference's loop.
+   timed against the reference's loop;
+9. zoo (run after phase 6's gather window): (a) ``repro_torch.launch.
+   train.main`` trains DLRM RM-2 at its published size (26 tables,
+   19,107,700 rows, embed 64, bottom MLP 13-512-256-64, top MLP
+   512-256-1, hotness 8; 1,223,392,321 parameters) for 3 steps at the
+   ``train_batch`` cell's 65,536 on the card and writes its 14.7 GB final
+   checkpoint (the phase first checks that 30 GB are free under its
+   directory in ``build/``); ``final step=3`` is printed, the loss is
+   finite, every table moved, each step launched ``segment_gather`` once a
+   table, and the window's largest call (the 10M-row table) is bit-equal
+   to its plain version; the checkpoint's step and a table's rows are read
+   back, then it is removed; one step is split into host batch
+   generation, host-to-device copy, forward, backward and AdamW (CUDA
+   events; the 26 bag launches and their 26 backward calls each between
+   events of their own), one runs under ``torch.profiler`` (the device's
+   busy share and device time by kernel, with the bag kernels it saw),
+   and the ``train_batch`` call and its backward are timed beside
+   ``embedding_bag``; (b) one step on the card against
+   the same step on the CPU at RM-2's widths with each table capped at
+   100,000 rows (907,700 rows): loss, gradient norm and every gradient
+   within the tolerances stated at ``ZOO_*``, each table's gradient also
+   row by row against the exact sum of the card's own terms, and a
+   ``Checkpointer`` round trip at that size; (c) ``forward`` at ``serve_p99`` (512) and
+   ``serve_bulk`` (262,144) and ``retrieval_score`` against 1,000,000
+   candidates on (a)'s tables, each equal to the CPU run within
+   tolerance; (d) ``gcn-cora`` at its published widths (d_feat 1433,
+   hidden 16, 7 classes) for 20 steps on the card and on the CPU from the
+   same weights: the loss trajectories agree.
 
-The run drives six paths, each in its own launch-counting window: the
+The run drives seven paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
 closes), the sharded path (phase 8's ``run_sharded`` and
@@ -130,8 +157,10 @@ path (phase 5b's stream, its queries and its family
 batch on the final snapshot; its checks against the members' own runs, the
 CPU run, the rebuild and the compacted store come after the window
 closes), the serve path (phase 7, its checks included: they read only
-host data), and the gather path (phase 6's one
-call of each ``segment_gather`` entry point at its users' shapes).  The
+host data), the gather path (phase 6's one
+call of each ``segment_gather`` entry point at its users' shapes), and the
+zoo path (phase 9 (a): ``launch.train.main``'s three RM-2 steps, its
+model build and final checkpoint; 78 ``segment_gather`` launches).  The
 kernels' launch counters are set to 0 just before a window and read just
 after it; a kernel of a path launched no time in that path's window fails
 the run.  The last lines are the ``kernels`` JSON object (``launches`` is
@@ -218,6 +247,8 @@ PATH_KERNELS = {
     # engine_chunk_step's filter and join
     "sharded": ("expand_filter_compact", "edge_exists", "tile_membership",
                 "bitmap_superset", "signature_filter"),
+    # phase 9: DLRM's embedding bags, one fixed-form launch a table a step
+    "zoo": ("segment_gather",),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -546,11 +577,13 @@ def unfused_segment(torch, kern, name, args, kw):
     return segment
 
 
-def profile_query(torch, fn) -> dict:
-    """One run of ``fn`` (a warm query) under ``torch.profiler``: the CUDA
-    kernels it launched, its device copies and fills, and the share of its
-    window (host clock from the call to a device sync) in which the device
-    was busy (the union of those intervals).  ``None`` counts where the
+def profile_query(torch, fn, parts: tuple[str, ...] = ()) -> dict:
+    """One run of ``fn`` (a warm query, a train step) under
+    ``torch.profiler``: the CUDA kernels it launched, its device copies and
+    fills, the share of its window (host clock from the call to a device
+    sync) in which the device was busy (the union of those intervals), and
+    the device time and count by kernel name (the 12 largest) and of the
+    kernels whose name holds each of ``parts``.  ``None`` counts where the
     profiler saw no device activity (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -565,7 +598,8 @@ def profile_query(torch, fn) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return {"cuda_kernels": None, "copies_fills": None,
-                "device_busy_share": None, "window_us": window_us}
+                "device_busy_share": None, "window_us": window_us,
+                "parts": {part: {"us": 0.0, "calls": 0} for part in parts}}
     copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0.0, float("-inf")
@@ -573,15 +607,25 @@ def profile_query(torch, fn) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    names: dict[str, int] = {}
+    by_name: dict[str, list] = {}
     for e in dev:
-        if not e.name.startswith(("Memcpy", "Memset")):
-            names[e.name] = names.get(e.name, 0) + 1
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"cuda_kernels": len(dev) - len(copies),
             "copies_fills": len(copies), "device_busy_us": busy,
             "window_us": window_us, "device_busy_share": busy / window_us,
-            "kernels_by_name": dict(sorted(names.items(),
-                                           key=lambda kv: -kv[1]))}
+            "kernels_by_name": dict(sorted(
+                ((n, c) for n, (_, c) in by_name.items()
+                 if not n.startswith(("Memcpy", "Memset"))),
+                key=lambda kv: -kv[1])),
+            "device_us_by_name": {n[:120]: {"us": us, "calls": c}
+                                  for n, (us, c) in top},
+            "parts": {part: {
+                "us": sum(us for n, (us, _) in by_name.items() if part in n),
+                "calls": sum(c for n, (_, c) in by_name.items()
+                             if part in n)} for part in parts}}
 
 
 def gather_tol(dtype: str, hot: int) -> float:
@@ -2836,6 +2880,586 @@ def gather_row(torch, ops, ref, inputs, outs, by_path) -> dict:
     return row
 
 
+# ------------------------------------------------------------ phase 9: zoo
+
+# the zoo's trainer at DLRM RM-2's published size (configs/dlrm_rm2.py)
+# and the train_batch cell's batch (configs/common.py RECSYS_SHAPES); (b)
+# caps each table at ZOO_CAP rows; (c) runs the serving cells' sizes
+ZOO_BATCH = 65_536
+ZOO_STEPS = 3
+ZOO_CAP = 100_000
+ZOO_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}
+ZOO_CANDIDATES = 1_000_000
+ZOO_GCN_STEPS = 20
+# the final RM-2 checkpoint holds params and both moments, about 14.7 GB
+ZOO_FREE_BYTES = 30e9
+# (b): the card's and the CPU's step on the same weights and batch.  The
+# embedding bags are bit-equal (both sum in entry order); everything else
+# sums in other orders: the dense layers' float32 products, and the
+# gradients' scatter-adds (float atomics on the card, in no fixed order;
+# about a fifth of a table's 524,288 ids land on its hottest row).  Each
+# gradient is a sum over 65,536 samples whose terms cancel, so a float32
+# gradient lies up to 3.6e-4 (norm-wise, per leaf) and 4.6e-4 (an element,
+# of the leaf's largest |g|) from the float64 one at this batch
+# (tools/zoo_grad_precision.py on the CPU), and two float32 runs can lie
+# that far apart in opposite directions.  So: the loss within rtol 1e-5,
+# the gradient norm within rtol 1e-4, and each gradient leaf within 2e-3
+# norm-wise, ||g_card - g_cpu|| <= 2e-3 ||g_cpu||, with no element off by
+# more than 2e-3 of the leaf's largest |g| (measured: 2.9e-4 and 4.1e-4).
+# Those limits hold what comes into the tables' backward, not the
+# backward: they scale with a leaf's hot rows, so one id's term dropped
+# from or added twice to its row passes them for every id of (b)'s batch
+# (tools/zoo_grad_plant.py).  So each table's gradient on the card is also
+# held row by row against the float64 sum of the card's own terms (each a
+# row of the bags' gradient d_emb; the card's d_emb and the CPU's differ
+# by up to a quarter of a sample's largest element, so the CPU's sum is no
+# reference at this grain): an element may differ by the rounding of a
+# float32 sum of its row's n terms in any order, (n-1)·2^-24·Σ|terms|,
+# plus ZOO_GRAD_TERM of the sum of those terms' largest |element| for the
+# float64 sum's own rounding.  That fails a dropped or doubled term on
+# any row that a few thousand ids or fewer hit: 38-59% of the batch's
+# ids, per table, with zipf's hot rows holding the rest.  The card's
+# gradient is also taken twice: its own run-to-run spread is logged
+# beside these
+ZOO_LOSS_RTOL = 1e-5
+ZOO_GNORM_RTOL = 1e-4
+ZOO_GRAD_NORM_RTOL = 2e-3
+ZOO_GRAD_ELEM = 2e-3  # of the leaf's largest |g|
+ZOO_GRAD_TERM = 1e-6
+# (c): logits and scores of order 1 through float32 matrix products in
+# another order; (d): GCN losses over 20 steps
+ZOO_SERVE_TOL = 1e-4
+ZOO_GCN_RTOL = 1e-4
+
+
+def zoo_batch(torch, cfg, b: int, seed: int) -> dict:
+    """A serving batch made on the card from ``seed``, distributed as
+    ``RecsysStream``'s: dense N(0, 1), each field's ids a discrete
+    Pareto(0.2) draw (zipf(1.2)'s tail) modulo its vocabulary, 10% of the
+    slots padding (-1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = torch.randn((b, cfg.n_dense), generator=gen, device="cuda")
+    u = torch.rand((b, cfg.n_sparse, cfg.hotness), generator=gen,
+                   device="cuda", dtype=torch.float64)
+    ids = torch.floor(u.clamp(min=1e-300) ** -5.0).clamp(max=2.0**62).long()
+    ids = ids % torch.tensor(cfg.vocab_sizes, device="cuda")[None, :, None]
+    pad = torch.rand(ids.shape, generator=gen, device="cuda") < 0.1
+    return {"dense": dense,
+            "sparse": torch.where(pad, -1, ids).to(torch.int32)}
+
+
+def step_split(torch, ops, model, opt_state, stream, step: int, opt_cfg):
+    """One train step in its parts, each timed: host batch generation
+    (host clock), then on the device timeline (CUDA events, one sync at the
+    end) the host-to-device copy, forward, backward and AdamW, and within
+    them the embedding bags' 26 forward launches and 26 backward calls
+    (zero fill + ``index_add_``), each between two events of its own.
+    Returns ``(split_ms, opt_state, batch)``."""
+    from repro_torch.kernels.autograd import EmbeddingBagSum
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.trainstep import batch_to, named_params
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    bags: dict[str, list] = {"forward": [], "backward": []}
+
+    def between(part, fn):
+        def timed(*args):
+            ev = (event(), event())
+            ev[0].record()
+            out = fn(*args)
+            ev[1].record()
+            bags[part].append(ev)
+            return out
+        return timed
+
+    t0 = time.perf_counter()
+    batch = stream.batch_at(step)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [event() for _ in range(5)]
+    fwd, bwd = ops.segment_gather_fixed, EmbeddingBagSum.backward
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ops.segment_gather_fixed = between("forward", fwd)
+    EmbeddingBagSum.backward = staticmethod(between("backward", bwd))
+    try:
+        ev[0].record()
+        b = batch_to(batch, "cuda")
+        ev[1].record()
+        loss = dlrm.loss_fn(model, b)
+        ev[2].record()
+        params = named_params(model)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        ev[3].record()
+    finally:
+        ops.segment_gather_fixed = fwd
+        EmbeddingBagSum.backward = staticmethod(bwd)
+    _, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
+    ev[4].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    names = ("h2d", "forward", "backward", "optimizer")
+    split = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    for part, evs in bags.items():
+        split[f"bags_{part}"] = sum(a.elapsed_time(z) for a, z in evs)
+        split[f"bags_{part}_calls"] = len(evs)
+    split.update(host_batch=host_ms, device_wall=wall,
+                 loss=float(loss.detach()))
+    return split, opt_state, batch
+
+
+def zoo_grads(torch, model, batch) -> tuple[float, dict, object]:
+    """The loss and gradients of DLRM's loss on ``batch``, and the bags'
+    gradient ``d_emb [B, F, D]`` (each table's backward scatters its
+    field's rows of it)."""
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.trainstep import batch_to, named_params
+
+    dev = next(model.parameters()).device
+    params = named_params(model)
+    kept = []
+    embed = dlrm.embed_bags
+
+    def keep(*args):
+        kept.append(embed(*args))
+        return kept[-1]
+
+    dlrm.embed_bags = keep
+    try:
+        loss = dlrm.loss_fn(model, batch_to(batch, dev))
+    finally:
+        dlrm.embed_bags = embed
+    *grads, d_emb = torch.autograd.grad(loss, list(params.values()) + kept)
+    return float(loss.detach()), dict(zip(params, grads)), d_emb
+
+
+def zoo_b_models(torch, arch):
+    """(b)'s inputs: RM-2's config with each table capped at ``ZOO_CAP``
+    rows, ``RecsysStream``'s batch 0 at ``ZOO_BATCH``, the model on the
+    card (weights from seed 1) and its copy on the CPU."""
+    import dataclasses
+
+    from repro_torch.launch.train import model_for
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.data import RecsysStream
+
+    cfg = dataclasses.replace(arch.config, vocab_sizes=tuple(
+        min(v, ZOO_CAP) for v in arch.config.vocab_sizes))
+    batch = RecsysStream(cfg.n_dense, cfg.n_sparse, cfg.hotness,
+                         cfg.vocab_sizes, batch=ZOO_BATCH, seed=0).batch_at(0)
+    card = model_for(arch, cfg, "cuda",
+                     torch.Generator(device="cuda").manual_seed(1))
+    cpu = dlrm.DLRM(cfg, device="meta")
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in
+                         card.state_dict().items()}, assign=True)
+    return cfg, batch, card, cpu
+
+
+def table_terms(torch, sparse, d_emb, t: int, v: int):
+    """Over the ids of field ``t`` (``sparse [B, F, K]`` on the card, < 0
+    padding, >= ``v`` row v-1), per row of its table: ``n``, the ids that
+    hit it; ``exact [v, D]``, the float64 sum of the terms its gradient
+    adds (each a row of the bags' gradient ``d_emb[:, t]``); ``s_abs [v,
+    D]``, the sum of their |elements|; ``s_inf [v]``, the sum of their
+    largest |element|."""
+    idx = sparse[:, t, :]
+    keep = idx >= 0
+    rows = idx.long().clamp(max=v - 1)[keep]
+    terms = d_emb[:, t, None, :].expand(-1, idx.shape[1], -1)[keep]
+    dev, d = terms.device, terms.shape[1]
+    exact = torch.zeros((v, d), dtype=torch.float64, device=dev).index_add_(
+        0, rows, terms.double())
+    s_abs = torch.zeros((v, d), device=dev).index_add_(0, rows, terms.abs())
+    s_inf = torch.zeros(v, device=dev).index_add_(0, rows,
+                                                  terms.abs().amax(1))
+    return torch.bincount(rows, minlength=v), exact, s_abs, s_inf
+
+
+def term_excess(torch, diff, n, s_abs, s_inf):
+    """Per row of a table, the largest |element| of ``diff`` (a float32
+    gradient less its exact sum) beyond the rounding bound of a float32
+    sum of the row's ``n`` terms in any order, (n-1)·2^-24·Σ|terms|, as a
+    share of ``s_inf``; a row no id hits must not differ at all."""
+    over = diff.abs() - (n - 1).clamp(min=0)[:, None] * 2.0**-24 * s_abs
+    return torch.where(s_inf[:, None] > 0,
+                       over / s_inf.clamp(min=1e-30)[:, None],
+                       torch.where(over > 0, torch.inf, 0.0)).amax(1)
+
+
+def zoo_grad_gap(torch, got: dict, want: dict, sparse, d_emb) -> dict:
+    """How far the card's gradients ``got`` lie from the CPU's ``want``,
+    per leaf: ``norm_rel`` (||g_card - g_cpu|| / ||g_cpu||) and
+    ``max_of_leaf_max`` (the largest element difference over the leaf's
+    largest |g_cpu|); for a table also ``term_excess``: the card's
+    gradient against the exact sum of the card's own terms
+    (:func:`table_terms` of ``d_emb`` and the batch's ``sparse``, both on
+    the card), by :func:`term_excess`.  ``ok``: each within its limit."""
+    out = {}
+    for k, w in want.items():
+        d = got[k].cpu() - w
+        rel = float(d.norm() / w.norm().clamp(min=1e-30))
+        elem = float(d.abs().max() / w.abs().max().clamp(min=1e-30))
+        row = {"norm_rel": rel, "max_abs": float(d.abs().max()),
+               "max_of_leaf_max": elem}
+        ok = rel <= ZOO_GRAD_NORM_RTOL and elem <= ZOO_GRAD_ELEM
+        if k.startswith("tables."):
+            n, exact, s_abs, s_inf = table_terms(
+                torch, sparse, d_emb, int(k.split(".")[1]), w.shape[0])
+            row["term_excess"] = float(term_excess(
+                torch, got[k].double() - exact, n, s_abs, s_inf).max())
+            ok = ok and row["term_excess"] <= ZOO_GRAD_TERM
+        row["ok"] = ok
+        out[k] = row
+    return out
+
+
+def zoo_phase(torch, ops, ref, card: str):
+    """Phase 9: the model zoo's trainer on the card.  ``drive``, the launch
+    window's whole content: (a) ``repro_torch.launch.train.main`` trains
+    DLRM RM-2 at its published size (26 tables, 19,107,700 rows, embed 64)
+    for 3 steps at batch 65,536, then writes its final checkpoint; the
+    largest ``segment_gather_fixed`` call is recorded.  ``finish(out,
+    launches)``, after the window (``launches``: the window's count of
+    ``segment_gather``): (a)'s checks (``final step=3`` printed, a finite
+    loss, every table moved, 26 · 3 launches, the largest call bit-equal to
+    its plain version, the checkpoint's step and a table's rows read back),
+    one step split into its parts and one under ``torch.profiler``, the
+    train_batch call and its backward
+    timed, (b) one step on the card against the CPU at RM-2's widths with
+    each table capped at 100,000 rows (loss, gradient norm, gradients, the
+    tables' row by row; a ``Checkpointer`` round trip),
+    (c) ``forward`` at the serving cells' batches and ``retrieval_score``
+    against 1,000,000 candidates on (a)'s tables, each against the CPU,
+    and (d) ``gcn-cora`` at its published widths for 20 steps on the card
+    and on the CPU from the same weights.  Returns ``(drive, finish)``."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.optimizer import (OptConfig, adamw_init,
+                                             adamw_update)
+    from repro_torch.train.trainstep import named_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("dlrm-rm2")
+    cfg = arch.config
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="zoo.", dir=ROOT / "build"))
+    free = shutil.disk_usage(work).free
+    check(free >= ZOO_FREE_BYTES,
+          f"phase 9: {free / 1e9:.1f} GB free under {work}; the RM-2 "
+          f"checkpoint takes about 14.7 GB and the phase asks for "
+          f"{ZOO_FREE_BYTES / 1e9:.0f} GB")
+    argv = ["--arch", "dlrm-rm2", "--preset", "full", "--batch",
+            str(ZOO_BATCH), "--steps", str(ZOO_STEPS), "--device", "cuda",
+            "--ckpt-dir", str(work)]
+    largest: dict = {}
+    orig = ops.segment_gather_fixed
+
+    def recorded(table, idx, weights=None):
+        size = (table.shape[0], idx.shape[0])
+        if table.is_cuda and ("size" not in largest
+                              or size > largest["size"]):
+            largest.update(size=size, table=table, idx=idx, weights=weights)
+        return orig(table, idx, weights)
+
+    def drive():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = io.StringIO()
+        ops.segment_gather_fixed = recorded
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                trainer = launch_train.main(argv)
+        finally:
+            ops.segment_gather_fixed = orig
+        torch.cuda.synchronize()
+        return {"trainer": trainer, "printed": out.getvalue(),
+                "wall_s": time.perf_counter() - t0, "base_bytes": base,
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def finish(got: dict, launched: int) -> dict:
+        t_start = time.perf_counter()
+        trainer = got.pop("trainer")
+        model = trainer.params
+        info = {"card": card, "config": {
+            "tables": len(cfg.vocab_sizes), "rows": sum(cfg.vocab_sizes),
+            "embed_dim": cfg.embed_dim, "bot_mlp": list(cfg.bot_mlp),
+            "top_mlp": list(cfg.top_mlp), "hotness": cfg.hotness,
+            "batch": ZOO_BATCH, "params": sum(p.numel()
+                                              for p in model.parameters())},
+            "train": dict(got)}
+        print(got["printed"], end="", flush=True)
+        check(f"final step={ZOO_STEPS} loss=" in got["printed"],
+              f"phase 9 (a): no 'final step={ZOO_STEPS}' line: "
+              f"{got['printed']!r}")
+        losses = [r["loss"] for r in trainer.metrics_log]
+        check(bool(losses) and all(np.isfinite(losses)),
+              f"phase 9 (a): loss {losses}")
+        check(launched == cfg.n_sparse * ZOO_STEPS,
+              f"phase 9 (a): {launched} segment_gather launches in the "
+              f"window, not {cfg.n_sparse} a step")
+        init = launch_train.model_for(
+            arch, cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+        moved = [bool((a != b).any()) for a, b in zip(init.tables,
+                                                      model.tables)]
+        del init
+        check(all(moved), f"phase 9 (a): tables that did not move: "
+                          f"{[i for i, m in enumerate(moved) if not m]}")
+        # the largest call in the window, bit for bit
+        err = max_abs_err(torch, ops.segment_gather_fixed(
+            largest["table"], largest["idx"], largest["weights"]),
+            ref.segment_gather_fixed_ref(largest["table"], largest["idx"],
+                                         largest["weights"]))
+        check(err == 0, f"phase 9: segment_gather's largest zoo call "
+                        f"{largest['size']} differs from its plain version")
+        info["train"].update(losses=losses, largest_call=list(
+            largest["size"]), largest_call_max_abs_err=err,
+            launches=launched)
+        # the final checkpoint read back, then removed
+        ck = Checkpointer(work / "dlrm-rm2")
+        step_dir = work / "dlrm-rm2" / f"step_{ZOO_STEPS:012d}"
+        meta = json.loads((step_dir / "meta.json").read_text())
+        saved = torch.load(step_dir / "params.pt", mmap=True,
+                           weights_only=True)
+        rows = saved["k:tables.0"][:4096]
+        check(ck.all_steps() == [ZOO_STEPS] and meta["step"] == ZOO_STEPS
+              and torch.equal(rows, model.tables[0][:4096].detach().cpu()),
+              "phase 9 (a): the checkpoint does not read back")
+        info["train"]["checkpoint_bytes"] = sum(
+            f.stat().st_size for f in step_dir.iterdir())
+        del saved, rows
+        shutil.rmtree(work / "dlrm-rm2")
+        log(f"phase 9 (a) {card}: RM-2 ({info['config']['params']} params) "
+            f"trained {ZOO_STEPS} steps at batch {ZOO_BATCH} in "
+            f"{got['wall_s']:.1f} s (losses {losses}); peak device memory "
+            f"{got['peak_bytes']} B ({got['base_bytes']} B before); "
+            f"checkpoint {info['train']['checkpoint_bytes']} B read back")
+
+        # one step in its parts, then one under the profiler
+        opt_cfg = OptConfig(lr=3e-3, warmup_steps=10, total_steps=ZOO_STEPS)
+        split, state, batch = step_split(torch, ops, model, trainer.opt_state,
+                                         trainer.stream, ZOO_STEPS, opt_cfg)
+        n_bags = len(cfg.vocab_sizes)
+        check(split["bags_forward_calls"] == n_bags
+              and split["bags_backward_calls"] == n_bags,
+              f"phase 9: the timed step made {split['bags_forward_calls']} "
+              f"bag launches and {split['bags_backward_calls']} bag "
+              f"backward calls, not {n_bags} each")
+        step = trainer.step_fn
+        # the bag kernels: segment_gather's forward launches and index_add_'s
+        # (torch's indexFunc kernels) in the backward.  Late in this script
+        # the profiler records only some of segment_gather's launches (10
+        # to 12 of 26, also after a profiled warm-up step), so the busy
+        # share is given with the missing launches added at their CUDA
+        # event time, an upper bound of their kernels' time
+        prof = profile_query(torch, lambda: step(model, state, batch),
+                             ("segment_gather", "indexFunc"))
+        missing = n_bags - prof["parts"]["segment_gather"]["calls"]
+        upper = (prof["device_busy_us"] + missing / n_bags
+                 * split["bags_forward"] * 1e3) / prof["window_us"]
+        # a step as the loop runs it: its batch's generation, then the step
+        with_batch = prof["device_busy_us"] / (
+            split["host_batch"] * 1e3 + prof["window_us"])
+        info["step_split_ms"] = split
+        info["profile"] = {"step": prof, "busy_share_with_batch": with_batch,
+                           "segment_gather_missing": missing,
+                           "busy_share_upper": upper}
+        log(f"phase 9 {card}: one step: host batch "
+            f"{split['host_batch']:.1f} ms, h2d {split['h2d']:.2f} ms, "
+            f"forward {split['forward']:.2f} ms (its {n_bags} bag launches "
+            f"{split['bags_forward']:.3f} ms), backward "
+            f"{split['backward']:.2f} ms (the bags' {n_bags} backward calls "
+            f"{split['bags_backward']:.3f} ms), optimizer "
+            f"{split['optimizer']:.2f} ms (device timeline); the device "
+            f"is busy {prof['device_busy_share']} (at most {upper}) of a "
+            f"step without its batch generation, {with_batch} with it; its "
+            f"bag kernels (profiled): {prof['parts']}")
+
+        # the train_batch call (the 10M table) and its backward, timed
+        table, idx = largest["table"].detach(), largest["idx"]
+        safe, mask = idx.clamp(min=0), (idx >= 0).to(table.dtype)
+        lib = F.embedding_bag(safe, table, mode="sum",
+                              per_sample_weights=mask)
+        lib_err = gather_close(torch, lib, orig(table, idx), "float32",
+                               cfg.hotness, "embedding_bag at train_batch")
+        keep = idx >= 0
+        rows_k = idx.long().clamp(max=table.shape[0] - 1)[keep]
+        d_out = torch.randn((idx.shape[0], table.shape[1]), device="cuda")
+        src = d_out[:, None, :].expand(*idx.shape, table.shape[1])[keep]
+        n_valid = int(keep.sum())
+        distinct = torch.unique(idx[keep]).numel()
+        byts = (idx.numel() * 4 + distinct * table.shape[1] * 4
+                + idx.shape[0] * table.shape[1] * 4)
+        nops = n_valid * table.shape[1]
+        info["train_batch_call"] = {
+            "shape": [list(table.shape), list(idx.shape)],
+            "valid": n_valid, "distinct_rows": distinct,
+            "ms": time_ms(torch, lambda: orig(table, idx)),
+            "plain_ms": time_ms(torch, lambda: ref.segment_gather_fixed_ref(
+                table, idx), reps=5),
+            "library_ms": time_ms(torch, lambda: F.embedding_bag(
+                safe, table, mode="sum", per_sample_weights=mask)),
+            "library_max_abs_err": lib_err,
+            "bound_ms": max(byts / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3,
+            "bound_by": ("bytes" if byts / PEAK_BYTES_S >= nops / PEAK_OPS_S
+                         else "operations"),
+            "backward_ms": time_ms(torch, lambda: torch.zeros_like(
+                table).index_add_(0, rows_k, src), reps=5),
+            "backward_index_add_ms": time_ms(torch, lambda: torch.empty_like(
+                table).index_add_(0, rows_k, src), reps=5),
+            # the dense gradient written once, d_out and the ids read once
+            "backward_bound_ms": (table.numel() * 4 + idx.numel() * 4
+                                  + idx.shape[0] * table.shape[1] * 4)
+            / PEAK_BYTES_S * 1e3}
+        del lib, d_out, src, rows_k, keep, safe, mask
+        tb = info["train_batch_call"]
+        log(f"phase 9 {card}: train_batch call {tb['shape']}: kernel "
+            f"{tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} ms, "
+            f"embedding_bag {tb['library_ms']:.4f} ms, bound "
+            f"{tb['bound_ms']:.4f} ms; its backward (zero fill + "
+            f"index_add_) {tb['backward_ms']:.4f} ms, index_add_ alone "
+            f"{tb['backward_index_add_ms']:.4f} ms, bound "
+            f"{tb['backward_bound_ms']:.4f} ms")
+        largest.clear()
+
+        # (c) the serving functions on (a)'s tables, against the CPU
+        cpu_model = dlrm.DLRM(cfg, device="meta")
+        cpu_model.load_state_dict({k: v.detach().cpu() for k, v in
+                                   model.state_dict().items()}, assign=True)
+        info["serve"] = {}
+        with torch.no_grad():
+            for cell, b in ZOO_SERVE.items():
+                sb = zoo_batch(torch, cfg, b, seed=b)
+                want = cpu_model({k: v.cpu() for k, v in sb.items()})
+                got_c = model(sb)
+                err = float((got_c.cpu() - want).abs().max())
+                check(bool(torch.allclose(got_c.cpu(), want,
+                                          rtol=ZOO_SERVE_TOL,
+                                          atol=ZOO_SERVE_TOL)),
+                      f"phase 9 (c): forward at {cell} ({b}) differs from "
+                      f"the CPU by {err}")
+                info["serve"][cell] = {
+                    "batch": b, "max_abs_err": err,
+                    "ms": time_ms(torch, lambda: model(sb), reps=5)}
+            q = zoo_batch(torch, cfg, 1, seed=7)
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            q["cand"] = torch.randn((ZOO_CANDIDATES, cfg.embed_dim),
+                                    generator=gen, device="cuda")
+            want = dlrm.retrieval_score(cpu_model, {k: v.cpu()
+                                                    for k, v in q.items()})
+            got_r = dlrm.retrieval_score(model, q)
+            err = float((got_r.cpu() - want).abs().max())
+            check(got_r.shape == (ZOO_CANDIDATES,) and bool(torch.allclose(
+                got_r.cpu(), want, rtol=ZOO_SERVE_TOL, atol=ZOO_SERVE_TOL)),
+                  f"phase 9 (c): retrieval_score differs from the CPU by "
+                  f"{err}")
+            info["serve"]["retrieval_cand"] = {
+                "candidates": ZOO_CANDIDATES, "max_abs_err": err,
+                "ms": time_ms(torch, lambda: dlrm.retrieval_score(model, q),
+                              reps=5)}
+        del cpu_model, model, state, trainer, q
+        log(f"phase 9 (c) {card}: serving equals the CPU run: "
+            f"{info['serve']}")
+
+        # (b) one step on the card against the CPU, tables capped
+        cfg_b, batch_b, card_m, cpu_m = zoo_b_models(torch, arch)
+        _, again, _ = zoo_grads(torch, card_m, batch_b)  # the card's spread
+        sides = {}
+        for name, m in (("cuda", card_m), ("cpu", cpu_m)):
+            t0 = time.perf_counter()
+            loss, grads, d_emb = zoo_grads(torch, m, batch_b)
+            st = adamw_init(named_params(m), opt_cfg)
+            _, st, gn = adamw_update(named_params(m), grads, st, opt_cfg)
+            sides[name] = (loss, float(gn), grads, st, d_emb,
+                           time.perf_counter() - t0)
+        (l_g, gn_g, gr_g, st_g, d_emb, s_g), (l_c, gn_c, gr_c, _, _, s_c) = \
+            sides["cuda"], sides["cpu"]
+        spread = {k: float((again[k] - g).norm() / g.norm().clamp(
+            min=1e-30)) for k, g in gr_g.items()}
+        del again
+        check(abs(l_g - l_c) <= ZOO_LOSS_RTOL * abs(l_c),
+              f"phase 9 (b): loss {l_g} on the card, {l_c} on the CPU")
+        check(abs(gn_g - gn_c) <= ZOO_GNORM_RTOL * abs(gn_c),
+              f"phase 9 (b): gradient norm {gn_g} on the card, {gn_c} on "
+              f"the CPU")
+        worst = zoo_grad_gap(torch, gr_g, gr_c, torch.from_numpy(
+            batch_b["sparse"]).cuda(), d_emb)
+        for k, w in worst.items():
+            w["card_spread"] = spread[k]
+            check(w["ok"], f"phase 9 (b): gradient {k} differs from the "
+                           f"CPU's: {w}")
+        # a Checkpointer round trip at this size
+        ck_b = Checkpointer(work / "b", keep=1)
+        ck_b.save(1, {"params": card_m.state_dict(), "opt": st_g})
+        _, trees, _ = ck_b.restore({"params": card_m.state_dict(),
+                                    "opt": st_g})
+        same = all(torch.equal(trees["params"][k], v)
+                   for k, v in card_m.state_dict().items()) and all(
+            torch.equal(trees["opt"].mu[k], st_g.mu[k])
+            and torch.equal(trees["opt"].nu[k], st_g.nu[k]) for k in st_g.mu)
+        check(same, "phase 9 (b): the checkpoint does not round-trip")
+        shutil.rmtree(work / "b")
+        info["step_vs_cpu"] = {
+            "rows": sum(cfg_b.vocab_sizes), "loss": [l_g, l_c],
+            "grad_norm": [gn_g, gn_c], "grad_max_abs_err": worst,
+            "seconds": [s_g, s_c]}
+        log(f"phase 9 (b) {card}: one step at {sum(cfg_b.vocab_sizes)} rows "
+            f"equals the CPU's: loss {l_g} / {l_c}, grad norm {gn_g} / "
+            f"{gn_c}, largest norm-wise gradient difference "
+            f"{max(w['norm_rel'] for w in worst.values()):.2e} (the card's "
+            f"own spread up to {max(spread.values()):.2e}), a table's "
+            f"largest beyond its rounding "
+            f"{max(w.get('term_excess', 0) for w in worst.values()):.2e} of "
+            f"its terms; checkpoint "
+            f"round trip held")
+        del card_m, cpu_m, sides, gr_g, gr_c, st_g, trees, d_emb
+
+        # (d) gcn-cora at its published widths, card against CPU
+        runs = {}
+        for device in ("cuda", "cpu"):
+            tr = launch_train.build(launch_train.parse_args(
+                ["--arch", "gcn-cora", "--preset", "full", "--steps",
+                 str(ZOO_GCN_STEPS), "--device", device, "--ckpt-dir",
+                 str(work / device), "--ckpt-every", "1000"]))
+            if device == "cpu":
+                tr.params.load_state_dict({k: v.cpu() for k, v in
+                                           runs["cuda_init"].items()})
+            else:
+                runs["cuda_init"] = {k: v.detach().clone() for k, v in
+                                     tr.params.state_dict().items()}
+            tr.cfg.log_every = 1
+            tr.fit()
+            runs[device] = [r["loss"] for r in tr.metrics_log]
+        gl, cl = np.array(runs["cuda"]), np.array(runs["cpu"])
+        check(len(gl) == ZOO_GCN_STEPS and np.allclose(gl, cl,
+                                                       rtol=ZOO_GCN_RTOL,
+                                                       atol=0),
+              f"phase 9 (d): GCN losses on the card {gl} and the CPU {cl}")
+        info["gcn"] = {"losses_cuda": runs["cuda"], "losses_cpu": runs["cpu"],
+                       "max_rel_err": float(np.max(np.abs(gl - cl) / cl))}
+        shutil.rmtree(work)
+        log(f"phase 9 (d) {card}: gcn-cora {ZOO_GCN_STEPS} steps, losses "
+            f"{gl[0]:.5f} -> {gl[-1]:.5f} on the card equal the CPU's "
+            f"(largest relative difference {info['gcn']['max_rel_err']:.2e})")
+        info["finish_s"] = time.perf_counter() - t_start
+        return info
+
+    return drive, finish
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=1000,
@@ -2923,9 +3547,17 @@ def main(argv=None) -> int:
     del g, maps, answers, cpu, served, compacted
     inputs = gather_inputs(torch)
     outs = window("gather", lambda: drive_gather(torch, ops, inputs))
+    t_zoo = time.perf_counter()
+    drive, finish = zoo_phase(torch, ops, ref, card)
+    zoo = finish(window("zoo", drive, recorder=None),
+                 by_path["zoo"]["segment_gather"])
+    zoo["phase_s"] = time.perf_counter() - t_zoo
+    del drive, finish
+    log(f"phase 9: {zoo['phase_s']:.1f} s")
 
     table = kernel_table(torch, ops, ref, rec, by_path)
     table.append(gather_row(torch, ops, ref, inputs, outs, by_path))
+    table[-1]["train_batch"] = zoo["train_batch_call"]
     del inputs, outs
     if args.save_calls is not None:
         args.save_calls.parent.mkdir(parents=True, exist_ok=True)
@@ -2940,7 +3572,7 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "serve": serve,
-              "sharded": sharded,
+              "sharded": sharded, "zoo": zoo,
               "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}

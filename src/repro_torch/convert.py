@@ -8,6 +8,11 @@ graph and plan included) into plain ints, tuples, dicts and numpy arrays;
 those.  The same plan on the same graph can then run through two
 executors, so executor parity does not depend on the generator or the
 planner.
+
+The zoo's weights carry across the same way: ``params_from_jax`` turns the
+reference's parameter pytree into the port module's ``state_dict`` and
+``adam_state_from_jax`` its optimizer state, so one trajectory can be
+resumed in both packages.
 """
 
 from __future__ import annotations
@@ -106,3 +111,52 @@ def plan_from_fields(d: dict) -> ExecPlan:
     d["start_candidates"] = np.asarray(d["start_candidates"], np.int32)
     d["order"] = list(d["order"])
     return ExecPlan(**d)
+
+
+# ------------------------------------------------------------ model zoo
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    """A nested dict / list pytree's leaves under dotted names: ``{"bot":
+    {"w": [a, b]}}`` -> ``{"bot.w.0": a, "bot.w.1": b}``, the names
+    ``nn.ParameterList`` and submodules give in a state dict."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_named_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def params_from_jax(arch_name: str, tree) -> dict:
+    """The port module's ``state_dict`` from the reference's parameter
+    pytree (leaves as numpy arrays): ``{"tables": [...], "bot": {"w":
+    [...], "b": [...]}, "top": ...}`` for DLRM, ``{"w": [...]}`` for GCN."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    get_arch(arch_name)  # raises for an arch not ported
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in _named_leaves(tree).items()}
+
+
+def adam_state_from_jax(state):
+    """The port's :class:`~repro_torch.train.optimizer.AdamWState` from the
+    reference's ``AdamWState(step, mu, nu, err)`` (leaves as numpy
+    arrays), its moments named like the port module's parameters."""
+    import torch
+
+    from repro_torch.train.optimizer import AdamWState
+
+    def named(tree):
+        return {k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in _named_leaves(tree).items()}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        mu=named(state.mu), nu=named(state.nu),
+        err=None if state.err is None else named(state.err))

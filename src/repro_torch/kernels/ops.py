@@ -13,9 +13,10 @@ The seven kernels replace the reference's Pallas TPU kernels:
 ``bitmap_superset`` and ``signature_filter`` on every query,
 ``delta_merge`` on live-store snapshots, and ``segment_gather`` behind
 ``segment_gather_fixed`` / ``segment_gather_sum`` (the embedding-bag / GNN
-aggregation entry points).  ``ragged_expand`` and ``delta_merge_labeled``
-are plain tensor code in the reference too and run as such on every
-device.
+aggregation entry points; :class:`EmbeddingBagSum` is the fixed form with
+its gradient, the model zoo's embedding bag).  ``ragged_expand`` and
+``delta_merge_labeled`` are plain tensor code in the reference too and run
+as such on every device.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import threading
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.autograd import (EmbeddingBagSum,  # noqa: F401
+                                          embedding_bag_sum)
 
 KERNELS = ("expand_filter_compact", "edge_exists", "tile_membership",
            "bitmap_superset", "signature_filter", "delta_merge",

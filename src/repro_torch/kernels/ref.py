@@ -91,12 +91,18 @@ def segment_gather_fixed_ref(table: torch.Tensor, idx: torch.Tensor,
     An index ``< 0`` is padding and adds nothing; an index ``≥ V`` reads
     row ``V-1``.  Weights (default 1) are cast to the table's dtype and each
     product is taken in that dtype, as the TPU kernel takes them; the sum
-    runs in float32 and is written in the table's dtype."""
+    runs in float32 in entry order (``k = 0, 1, ...``, as the CUDA kernel
+    adds, so an unweighted float32 bag is bit-equal to it) and is written
+    in the table's dtype."""
     rows = table[_clamp_rows(table, idx)]  # [S, K, D]
     if weights is not None:
         rows = rows * weights.to(table.dtype)[:, :, None]
-    rows = torch.where((idx >= 0)[:, :, None], rows, 0)
-    return rows.float().sum(1).to(table.dtype)
+    rows = torch.where((idx >= 0)[:, :, None], rows, 0).float()
+    acc = torch.zeros((idx.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for k in range(idx.shape[1]):
+        acc = acc + rows[:, k]
+    return acc.to(table.dtype)
 
 
 def segment_gather_sum_ref(table: torch.Tensor, indices: torch.Tensor,

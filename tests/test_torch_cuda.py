@@ -946,3 +946,105 @@ def test_cuda_timed_waits_for_nested_results(cuda):
     res, sec = timed(work, repeats=3, warmup=1)
     assert float(res["out"][0].stats["t"].sum()) == 8.0
     assert sec > spin / 2 > enqueue, (sec, spin, enqueue)
+
+
+# ------------------------------------------------------------ model zoo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuda_embedding_bag_forward_backward_match_cpu(cuda, weighted):
+    """``EmbeddingBagSum`` on the card (the kernel forward, one launch; the
+    ``index_add_`` backward) against the same call on the CPU (the plain
+    version), on zipf-drawn ids with padding, ids >= V and hot rows.  The
+    unweighted forward is bit-equal (both sum in entry order).  The
+    table's gradient sums each row's n contributions in another order
+    (the card's float atomics, in no fixed order): any two orders of a
+    float32 sum differ by at most 2·(n-1)·2^-24·Σ|terms|, which is the
+    tolerance of each element (the hottest row takes about 1,400 terms).
+    The weights' gradient is a 64-term dot product a slot: rtol = atol =
+    1e-5."""
+    rng = np.random.default_rng(9)
+    v, d, s, k = 50_000, 64, 8192, 8
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = (rng.zipf(1.2, size=(s, k)) % (v + 100) - 1).astype(np.int32)
+    w = rng.uniform(0.5, 1.5, (s, k)).astype(np.float32)
+    d_out = rng.normal(size=(s, d)).astype(np.float32)
+
+    def run(device):
+        t = torch.from_numpy(table).to(device).requires_grad_()
+        ws = torch.from_numpy(w).to(device).requires_grad_() \
+            if weighted else None
+        out = ops.embedding_bag_sum(t, torch.from_numpy(idx).to(device), ws)
+        out.backward(torch.from_numpy(d_out).to(device))
+        return [None if x is None else x.detach().cpu()
+                for x in (out, t.grad, None if ws is None else ws.grad)]
+
+    ops.reset_launches()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert ops.launches["segment_gather"] == 1
+    want = run("cpu")
+    if not weighted:
+        assert torch.equal(got[0], want[0])
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+    # each table element's terms: d_out[s] (times w[s, k]) for each valid
+    # slot reading its row
+    keep = idx >= 0
+    rows = torch.from_numpy(np.minimum(idx, v - 1)[keep]).long()
+    terms = torch.from_numpy(d_out)[:, None, :] * (
+        torch.from_numpy(w)[:, :, None] if weighted else 1.0)
+    terms = terms.expand(s, k, d)[torch.from_numpy(keep)]
+    abs_sum = torch.zeros(v, d).index_add_(0, rows, terms.abs())
+    n = torch.zeros(v).index_add_(0, rows, torch.ones(rows.shape[0]))
+    bound = 2 * (n - 1).clamp(min=0)[:, None] * 2.0**-24 * abs_sum
+    assert bool(((got[1] - want[1]).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_cuda_dlrm_small_step_matches_cpu(cuda):
+    """One DLRM ``SMALL`` train step on the card against the same step on
+    the CPU from the same weights and batch: loss, gradient norm and the
+    weights after AdamW.  The step's update is close to sign(g)·lr
+    (3e-3), so a gradient the two devices round apart near 0 may move a
+    weight by up to 2·lr; every other weight agrees within 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import model_for
+    from repro_torch.train.data import RecsysStream
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import make_train_step, named_params
+
+    arch = get_arch("dlrm-rm2")
+    cfg = arch.smoke()[0]
+    batch = RecsysStream(cfg.n_dense, cfg.n_sparse, cfg.hotness,
+                         cfg.vocab_sizes, batch=256, seed=3).batch_at(0)
+    opt = OptConfig(lr=3e-3, warmup_steps=1)
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_for(arch, cfg, device,
+                          torch.Generator(device="cpu").manual_seed(0)
+                          if device == "cpu" else None)
+        if device != "cpu":
+            model.load_state_dict(out["cpu"][2])
+        state = adamw_init(named_params(model), opt)
+        start = {k: t.detach().cpu().clone()
+                 for k, t in model.state_dict().items()}
+        ops.reset_launches()
+        _, _, m = make_train_step(arch.loss_fn, model, opt)(model, state,
+                                                            batch)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert ops.launches["segment_gather"] == cfg.n_sparse
+        out[str(torch.device(device).type)] = (
+            float(m["loss"]), float(m["grad_norm"]), start,
+            {k: t.detach().cpu() for k, t in model.state_dict().items()})
+    (l_cpu, g_cpu, _, p_cpu), (l_gpu, g_gpu, _, p_gpu) = out["cpu"], \
+        out["cuda"]
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    assert g_gpu == pytest.approx(g_cpu, rel=1e-4)
+    for k, want in p_cpu.items():
+        diff = (p_gpu[k] - want).abs()
+        assert float(diff.max()) <= 2 * 3e-3 + 1e-6, k
+        assert float((diff > 1e-5).float().mean()) <= 0.01, k

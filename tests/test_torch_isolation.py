@@ -60,6 +60,29 @@ reg.register("lubm", g, maps)
 with Scheduler(reg, workers=2, metrics=reg.metrics) as sched:
     res = sched.submit("lubm", LUBM_QUERIES["Q2"], trace=True)
 assert res.count > 0 and res.stats["trace"]["root"]["children"]
+import tempfile
+import repro_torch.configs.common
+import repro_torch.configs.dlrm_rm2
+import repro_torch.configs.gcn_cora
+import repro_torch.configs.gnn_common
+import repro_torch.kernels.autograd
+import repro_torch.models.gnn.common
+import repro_torch.models.gnn.gcn
+import repro_torch.models.gnn.sampler
+import repro_torch.models.layers
+import repro_torch.models.recsys.dlrm
+import repro_torch.train.checkpoint
+import repro_torch.train.data
+import repro_torch.train.loop
+import repro_torch.train.optimizer
+import repro_torch.train.straggler
+import repro_torch.train.trainstep
+from repro_torch.launch import train as launch_train
+with tempfile.TemporaryDirectory() as d:
+    for arch in ("dlrm-rm2", "gcn-cora"):
+        tr = launch_train.main(["--arch", arch, "--device", "cpu", "--steps",
+                                "2", "--ckpt-dir", d])
+        assert tr.ckpt.latest_step() == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.startswith("jax")
              or m.startswith("jaxlib"))
@@ -126,3 +149,7 @@ def test_entry_points_raise_without_cuda(lubm_graph, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--dataset", "lubm", "--scale", "1",
                            "--queries", "Q1", "--repeat", "1"])
+    from repro_torch.launch import train as launch_train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.build(launch_train.parse_args(["--arch", "dlrm-rm2"]))
