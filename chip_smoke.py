@@ -145,9 +145,44 @@ Phases, each fatal on failure (no phase's error is caught):
    candidates on (a)'s tables, each equal to the CPU run within
    tolerance; (d) ``gcn-cora`` at its published widths (d_feat 1433,
    hidden 16, 7 classes) for 20 steps on the card and on the CPU from the
-   same weights: the loss trajectories agree.
+   same weights: the loss trajectories agree;
+10. lm (after phase 9, whose model and optimizer state are freed first):
+   (a) ``repro_torch.launch.train.main`` trains qwen2-1.5b at its
+   published size (28 layers, d_model 1536, GQA 12/2, d_ff 8960, vocab
+   151,936, QKV bias, untied head; 1,777,088,000 parameters) for 3 steps
+   at ``train_4k``'s sequence length of 4096, the batch cut from 256 to 4
+   (AdamW's float32 state alone is 28.4 GB) in 2 microbatches, and writes
+   its 21.3 GB final checkpoint (the phase first checks that 50 GB are
+   free under ``build/``); ``final step=3`` is printed, the loss is finite,
+   every leaf moved, and the checkpoint's step and a leaf are read back,
+   then it is removed; one step is split into H2D, forward + backward and
+   AdamW (CUDA events), one runs under ``torch.profiler`` (the busy
+   share), and the step's model FLOPs are set against the card's dense
+   bf16 peak; (c) on (a)'s weights ``long_500k`` (batch 1, a 15.0 GB cache
+   filled from a seed, ``pos`` = 524288 - 4, 4 steps) and ``prefill_32k``
+   (``forward`` without gradients at batch 1 and the longest multiple of
+   4096 up to 32768 whose plain attention fits: one layer's float32
+   logits take 12 · S² · 4 B, 51.5 GB at 32768; the length is chosen from
+   the forward's peak memory at three shorter lengths); qwen3-8b at its
+   published size (36 layers, 8.19B parameters, 32.8 GB in float32) from
+   seeded weights: a 32-token prompt fed token by token through
+   ``decode_step`` equals ``forward`` at every position within
+   ``LM_DECODE_TOL`` (float32 and bfloat16 compute), then ``decode_32k``
+   (batch cut from 128 to 4: the cache at 128 lanes would take 618 GB; a
+   19.3 GB cache filled from a seed, ``pos`` = 32768 - 8, 8 steps); each
+   decode step is timed with CUDA events beside its bound (the float32
+   weights and the cache read once); (b) qwen3-8b (qk_norm) and
+   minitron-8b (vocab 256,000, theta 1e4) at full width and depth 2, batch
+   2 x 128, from the same weights on the card and on the CPU, in float32
+   and in bfloat16 compute: the loss, the gradient norm, each gradient
+   leaf norm-wise and one AdamW step within the ``LM_*`` tolerances, with
+   a second card run (the card's own spread) and a float64 run on the
+   card (the truth both sides are measured against) recorded beside them.
+   Cuts: depth (steps, (b)'s layers), batch ((a) 4, ``decode_32k`` 4) and
+   the prefill length, each for the reason given; widths are the
+   published ones.
 
-The run drives seven paths, each in its own launch-counting window: the
+The run drives eight paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
 closes), the sharded path (phase 8's ``run_sharded`` and
@@ -160,7 +195,10 @@ closes), the serve path (phase 7, its checks included: they read only
 host data), the gather path (phase 6's one
 call of each ``segment_gather`` entry point at its users' shapes), and the
 zoo path (phase 9 (a): ``launch.train.main``'s three RM-2 steps, its
-model build and final checkpoint; 78 ``segment_gather`` launches).  The
+model build and final checkpoint; 78 ``segment_gather`` launches) and the
+lm path (phase 10 (a): ``launch.train.main``'s three qwen2-1.5b steps, its
+model build and final checkpoint; the reference's LM reaches no Pallas
+kernel, so this window expects none of the seven).  The
 kernels' launch counters are set to 0 just before a window and read just
 after it; a kernel of a path launched no time in that path's window fails
 the run.  The last lines are the ``kernels`` JSON object (``launches`` is
@@ -176,6 +214,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import random
 import re
 import subprocess
@@ -249,6 +288,9 @@ PATH_KERNELS = {
                 "bitmap_superset", "signature_filter"),
     # phase 9: DLRM's embedding bags, one fixed-form launch a table a step
     "zoo": ("segment_gather",),
+    # phase 10: the reference's LM is plain jnp (einsum attention, x @ w
+    # products): no Pallas kernel, so none of the seven
+    "lm": (),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -3460,6 +3502,591 @@ def zoo_phase(torch, ops, ref, card: str):
     return drive, finish
 
 
+# ------------------------------------------------------------- phase 10: lm
+
+# (a): the dense LM trainer at qwen2-1.5b's published size (configs/
+# qwen2_1p5b.py), train_4k's sequence length; the batch cut from 256 to 4
+# (AdamW's float32 moments alone take 14.2 GB, with the weights and the
+# gradients 28.4 GB), in 2 microbatches; the final checkpoint is about
+# 21.3 GB
+LM_ARCH = "qwen2-1.5b"
+LM_PARAMS = 1_777_088_000
+LM_BATCH = 4
+LM_SEQ = 4096
+LM_MICROBATCHES = 2
+LM_STEPS = 3
+LM_FREE_BYTES = 50e9
+# (b): full width, depth cut to 2 layers, batch 2 x 128 (TokenStream seed
+# 0), card against CPU in float32 and bfloat16, beside a float64 run on the
+# card (the truth both are held to in the record)
+LM_B_ARCHS = ("qwen3-8b", "minitron-8b")
+LM_B_LAYERS = 2
+LM_B_BATCH = 2
+LM_B_SEQ = 128
+# (c): decode at qwen3-8b's published size against its forward (a
+# 32-token prompt, batch 2), decode_32k (batch cut from 128 to 4: the cache
+# at 128 lanes would take 618 GB) and long_500k on (a)'s weights; prefill
+# at batch 1, the longest sequence up to 32768 whose plain attention fits
+LM_DECODE_ARCH = "qwen3-8b"
+LM_PROMPT = 32
+LM_DECODE_32K = (4, 32768, 8)  # batch, cache length, steps
+LM_LONG_500K = (1, 524288, 4)
+LM_PREFILL_MAX = 32768
+LM_PREFILL_STEP = 4096
+LM_PREFILL_PROBES = (2048, 4096, 8192)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_S = 989e12
+# (b)'s tolerances, card against CPU, from the first chip run of this phase
+# (H100, PERF.md §6): the card is deterministic here (two runs equal
+# bit for bit), and each device's gradients lie from the float64 run's by
+# up to 5.9e-6 (card) and 2.0e-6 (CPU) norm-wise a leaf in float32, 2.3e-2
+# and 2.1e-2 in bfloat16, so two runs can differ by the sum: a leaf within
+# 3e-5 (float32) and 5e-2 (bfloat16) norm-wise (measured 6.0e-6, 1.2e-2).
+# The loss: within 1e-6 and 1e-4 (measured 7.6e-8, 9.5e-6); the gradient
+# norm within 1e-5 and 1e-3 (measured 0, 1.1e-4).  One AdamW step moves an
+# element by about lr·sign(g), so an element whose gradient the two devices
+# round to either side of 0 moves 2·lr apart: each leaf's new weights
+# within 3e-3 (float32) and 0.5 (bfloat16: the qk-norm gains' gradients
+# cancel to rounding level) of its update's norm (measured 3.9e-4, 0.18);
+# a wrong step (a missing bias correction, the wrong rate) misses by 1 or
+# more
+LM_LOSS_RTOL = {"float32": 1e-6, "bfloat16": 1e-4}
+LM_GNORM_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+LM_GRAD_RTOL = {"float32": 3e-5, "bfloat16": 5e-2}
+LM_ADAM_RTOL = {"float32": 3e-3, "bfloat16": 0.5}
+# (c): decode against forward, the largest difference of a position's
+# logits over the forward's largest |logit|: GEMMs of 1 row and of 32 rows
+# sum in other orders over 36 layers (measured 3.3e-6 in float32, 2.0e-2 in
+# bfloat16; the reference's own smoke test allows 0.15 absolute in bf16)
+LM_DECODE_TOL = {"float32": 5e-5, "bfloat16": 0.1}
+
+
+def lm_model(torch, name: str, cfg, device, state=None, seed: int = 1):
+    """The LM of ``name`` at ``cfg`` on ``device``: weights from ``state``
+    (a state dict) or drawn from ``seed``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import model_for
+
+    arch = get_arch(name)
+    if state is None:
+        return model_for(arch, cfg, device,
+                         torch.Generator(device=device).manual_seed(seed))
+    model = model_for(arch, cfg, "meta", None)
+    model.load_state_dict({k: v.to(device, copy=True)
+                           for k, v in state.items()}, assign=True)
+    return model
+
+
+def lm_grads(torch, model, batch) -> tuple[float, dict]:
+    """The loss and each gradient leaf of ``model`` on ``batch``."""
+    from repro_torch.models import transformer
+    from repro_torch.train.trainstep import batch_to, value_and_grad
+
+    dev = next(model.parameters()).device
+    loss, grads = value_and_grad(transformer.loss_fn, model,
+                                 batch_to(batch, dev))
+    return float(loss), grads
+
+
+def lm_rel(torch, a, b) -> float:
+    """||a - b|| / ||b|| on ``a``'s device: the difference in float32 (of
+    two close float32 tensors: exact or nearly), the norms summed in
+    float64."""
+    from torch.linalg import vector_norm
+
+    b = b.to(a.device, torch.float32)
+    return float(vector_norm(a.float() - b, dtype=torch.float64)
+                 / vector_norm(b, dtype=torch.float64).clamp(min=1e-300))
+
+
+def lm_card_vs_cpu(torch, name: str) -> dict:
+    """(b) for one arch: at full width and ``LM_B_LAYERS`` layers, one
+    float64 run on the card, then in float32 and bfloat16 one run on the
+    CPU and two on the card (its spread) from the same weights, each with
+    one AdamW step from a fresh state.  Returns per dtype the losses,
+    gradient norms, and per leaf the norm-wise gaps card-CPU, card-card,
+    card-float64 and CPU-float64 of the gradients, and card-CPU of the
+    updated weights over the CPU's update (the largest of each).  The
+    comparisons run on the card, each host tensor crossing once."""
+    import dataclasses
+
+    from torch.linalg import vector_norm
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.optimizer import (OptConfig, adamw_init,
+                                             adamw_update, global_norm)
+    from repro_torch.train.trainstep import named_params
+
+    arch = get_arch(name)
+    base = dataclasses.replace(arch.config, n_layers=LM_B_LAYERS)
+    batch = TokenStream(vocab=base.vocab, batch=LM_B_BATCH, seq=LM_B_SEQ,
+                        seed=0).batch_at(0)
+    opt_cfg = OptConfig(lr=3e-3, warmup_steps=10, total_steps=LM_STEPS)
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    card = lm_model(torch, name, base, "cuda")
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in card.state_dict().items()}
+    # the truth: the same weights in float64, compute and logits too, on
+    # the card (converted in place, so the card never holds both models)
+    card.double()
+    card.cfg = dataclasses.replace(base, compute_dtype="float64",
+                                   attn_fp32_logits=False)
+    l64, g64 = lm_grads(torch, card, batch)
+    gn64 = float(global_norm(g64))
+    truth = {k: g64.pop(k).cpu().float() for k in list(g64)}
+    del card
+    card = lm_model(torch, name, base, "cuda", state=state)
+    cpu = lm_model(torch, name, base, "cpu", state=state)
+    params, params_h = named_params(card), named_params(cpu)
+    out = {"params": sum(v.numel() for v in state.values()),
+           "card_bytes_before": held,
+           "float64": {"loss": l64, "grad_norm": gn64}}
+    for dt in ("float32", "bfloat16"):
+        card.cfg = cpu.cfg = dataclasses.replace(base, compute_dtype=dt)
+        t_g = time.perf_counter()
+        l_h, g_h = lm_grads(torch, cpu, batch)
+        gn_h = float(global_norm(g_h))
+        t_a = time.perf_counter()
+        adamw_update(params_h, g_h, adamw_init(params_h, opt_cfg), opt_cfg)
+        row = {"cpu_grads_s": t_a - t_g,
+               "cpu_adamw_s": time.perf_counter() - t_a}
+        l_c, g_c = lm_grads(torch, card, batch)
+        l_c2, g_c2 = lm_grads(torch, card, batch)
+        leaves = {k: {"card_card": lm_rel(torch, g_c2[k], g)}
+                  for k, g in g_c.items()}
+        del g_c2
+        for k in list(g_h):
+            g, t = g_h.pop(k).to("cuda"), truth[k].to("cuda")
+            leaves[k].update(card_cpu=lm_rel(torch, g_c[k], g),
+                             card_f64=lm_rel(torch, g_c[k], t),
+                             cpu_f64=lm_rel(torch, g, t))
+        del g, t
+        gn_c = float(global_norm(g_c))
+        adamw_update(params, g_c, adamw_init(params, opt_cfg), opt_cfg)
+        del g_c
+        with torch.no_grad():
+            for k, p in params_h.items():
+                start, got_h = state[k].to("cuda"), p.to("cuda")
+                leaves[k]["adam_card_cpu"] = float(
+                    vector_norm(params[k] - got_h, dtype=torch.float64)
+                    / vector_norm(got_h - start, dtype=torch.float64)
+                    .clamp(min=1e-300))
+                # back to the weights both start from
+                params[k].copy_(start)
+                p.copy_(state[k])
+        del start, got_h
+        row.update(loss=[l_c, l_h], loss_card_again=l_c2,
+                   grad_norm=[gn_c, gn_h], leaves=leaves,
+                   cpu_s=time.perf_counter() - t_g)
+        row["worst"] = {f: max((v[f], k) for k, v in leaves.items())
+                        for f in ("card_cpu", "card_card", "card_f64",
+                                  "cpu_f64", "adam_card_cpu")}
+        out[dt] = row
+    del card, cpu, params, params_h, state, truth
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lm_check_b(name: str, got: dict) -> None:
+    """(b)'s checks: loss, gradient norm, each gradient leaf norm-wise and
+    the AdamW step's weights, card against CPU, within ``LM_*``."""
+    for dt in ("float32", "bfloat16"):
+        row = got[dt]
+        (l_c, l_h), (g_c, g_h) = row["loss"], row["grad_norm"]
+        check(abs(l_c - l_h) <= LM_LOSS_RTOL[dt] * abs(l_h),
+              f"phase 10 (b) {name} {dt}: loss {l_c} on the card, {l_h} on "
+              f"the CPU")
+        check(abs(g_c - g_h) <= LM_GNORM_RTOL[dt] * abs(g_h),
+              f"phase 10 (b) {name} {dt}: gradient norm {g_c} on the card, "
+              f"{g_h} on the CPU")
+        for k, v in row["leaves"].items():
+            check(v["card_cpu"] <= LM_GRAD_RTOL[dt],
+                  f"phase 10 (b) {name} {dt}: gradient {k} differs from the "
+                  f"CPU's: {v}")
+            check(v["adam_card_cpu"] <= LM_ADAM_RTOL[dt],
+                  f"phase 10 (b) {name} {dt}: the AdamW step of {k} differs "
+                  f"from the CPU's: {v}")
+
+
+def lm_decode_vs_forward(torch, model, tokens) -> dict:
+    """(c): ``forward`` on ``tokens`` against ``decode_step`` fed them one
+    at a time into a fresh cache, in float32 and in bfloat16 on the same
+    weights: per dtype the largest difference of a position's logits over
+    the forward's largest |logit|, and the decode's ms a step."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+
+    out = {}
+    cfg0 = model.cfg
+    for dt in ("float32", "bfloat16"):
+        model.cfg = dataclasses.replace(cfg0, compute_dtype=dt)
+        with torch.no_grad():
+            full, _ = transformer.forward(model, tokens)
+        cache = transformer.init_cache(model.cfg, tokens.shape[0],
+                                       tokens.shape[1], device="cuda")
+        steps, times = [], []
+        for t in range(tokens.shape[1]):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits, cache = transformer.decode_step(model, cache,
+                                                    tokens[:, t:t + 1])
+            ev[1].record()
+            steps.append(logits[:, 0])
+            times.append(ev)
+        dec = torch.stack(steps, 1).float()
+        full = full.float()
+        torch.cuda.synchronize()
+        scale = float(full.abs().max())
+        out[dt] = {"max_abs_of_max": float((dec - full).abs().max()) / scale,
+                   "per_position": [float((dec[:, t] - full[:, t]).abs().max())
+                                    / scale for t in range(full.shape[1])],
+                   "norm_rel": lm_rel(torch, dec, full),
+                   "logit_max": scale,
+                   "ms_per_step": [a.elapsed_time(z) for a, z in times]}
+        del full, dec, cache
+    model.cfg = cfg0
+    return out
+
+
+def lm_decode_cell(torch, model, batch: int, length: int, steps: int,
+                   seed: int) -> dict:
+    """A decode cell: a cache of ``length`` filled from ``seed`` (N(0, 1)
+    keys and values), ``pos`` = length - steps, then ``steps`` decode steps
+    of one token a sequence, each timed with CUDA events; the logits must be
+    finite and ``pos`` must reach ``length``.  The bound is the bytes a step
+    must read, the float32 weights and the whole cache, over the card's
+    memory rate."""
+    from repro_torch.models import transformer
+
+    cfg = model.cfg
+    cache = transformer.init_cache(cfg, batch, length, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    cache["pos"].fill_(length - steps)
+    tokens = torch.randint(0, cfg.vocab, (steps, batch, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cache_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("k", "v"))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    times = []
+    for i in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        logits, cache = transformer.decode_step(model, cache, tokens[i])
+        ev[1].record()
+        times.append(ev)
+        check(bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == (batch, 1, cfg.vocab),
+              f"phase 10 (c): decode step {i} at cache {length} gave "
+              f"logits {tuple(logits.shape)}, not all finite")
+    torch.cuda.synchronize()
+    check(int(cache["pos"]) == length,
+          f"phase 10 (c): pos {int(cache['pos'])} after {steps} steps, not "
+          f"{length}")
+    ms = [a.elapsed_time(z) for a, z in times]
+    del cache
+    return {"batch": batch, "cache_len": length, "steps": steps,
+            "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
+            "ms_per_step": ms,
+            "bound_ms": (cache_bytes + weight_bytes) / PEAK_BYTES_S * 1e3}
+
+
+def lm_prefill(torch, model) -> dict:
+    """``prefill_32k`` at batch 1: the forward's peak memory at
+    ``LM_PREFILL_PROBES`` lengths, fitted as a + b·S + c·S², picks the
+    longest multiple of ``LM_PREFILL_STEP`` up to ``LM_PREFILL_MAX`` that fits in 90% of
+    the free device memory; that forward is timed (no gradients) and its
+    logits must be finite."""
+    from repro_torch.models import transformer
+
+    def peak(s: int) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tok = torch.zeros((1, s), dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            logits, _ = transformer.forward(model, tok)
+        del logits
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    xs = np.array(LM_PREFILL_PROBES, np.float64)
+    ys = np.array([peak(int(s)) for s in xs], np.float64)
+    c, b, a = np.polyfit(xs, ys, 2)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    fits = [s for s in range(LM_PREFILL_STEP, LM_PREFILL_MAX + 1,
+                             LM_PREFILL_STEP)
+            if a + b * s + c * s * s <= 0.9 * free]
+    check(bool(fits), f"phase 10 (c): no prefill length fits {free} B")
+    s = fits[-1]
+    tok = torch.randint(0, model.cfg.vocab, (1, s), device="cuda",
+                        dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    with torch.no_grad():
+        logits, _ = transformer.forward(model, tok)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(logits).all())
+    check(ok and tuple(logits.shape) == (1, s, model.cfg.vocab),
+          f"phase 10 (c): prefill at {s} gave logits {tuple(logits.shape)}")
+    del logits
+    cfg = model.cfg
+    return {"seq": s, "probe_peaks": dict(zip(LM_PREFILL_PROBES,
+                                              ys.tolist())),
+            "fit_bytes_at_32768": a + b * 32768 + c * 32768 ** 2,
+            "free_bytes": free, "peak_bytes": torch.cuda.max_memory_allocated()
+            - base, "ms": ev[0].elapsed_time(ev[1]),
+            "logits_f32_bytes_a_layer_at_32768":
+                cfg.n_heads * 32768 * 32768 * 4}
+
+
+def lm_step_split(torch, model, opt_state, stream, step: int, opt_cfg):
+    """One train step in its parts: host batch generation (host clock),
+    then on the device timeline (CUDA events) the host-to-device copy, the
+    microbatches' forward + backward with their float32 gradient sums, and
+    AdamW.  Returns ``(split_ms, opt_state, batch)``."""
+    from repro_torch.models import transformer
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.trainstep import (batch_to, named_params,
+                                             value_and_grad)
+
+    t0 = time.perf_counter()
+    batch = stream.batch_at(step)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    b = batch_to(batch, "cuda")
+    ev[1].record()
+    params = named_params(model)
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device="cuda")
+             for k, p in params.items()}
+    n = LM_MICROBATCHES
+    for i in range(n):
+        one = {k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
+               for k, x in b.items()}
+        _, g = value_and_grad(transformer.loss_fn, model, one)
+        for k, gk in g.items():
+            grads[k] += gk
+        del g
+    grads = {k: g / n for k, g in grads.items()}
+    ev[2].record()
+    _, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    names = ("h2d", "forward_backward", "optimizer")
+    split = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+    split["host_batch"] = host_ms
+    return split, opt_state, batch
+
+
+def lm_phase(torch, card: str):
+    """Phase 10: the dense LM on the card.  ``drive``, the launch window's
+    whole content: (a) ``repro_torch.launch.train.main`` trains qwen2-1.5b
+    at its published size (28 layers, d_model 1536, GQA 12/2, d_ff 8960,
+    vocab 151,936, QKV bias; 1,777,088,000 parameters) for 3 steps at
+    train_4k's sequence length 4096, batch 4 in 2 microbatches, then writes
+    its final checkpoint.  ``finish(out, launches)``, after the window:
+    (a)'s checks (``final step=3`` printed, finite losses, every leaf moved,
+    the checkpoint's step and a leaf read back), one step split into its
+    parts and one under ``torch.profiler``, the model FLOPs; (b) qwen3-8b
+    and minitron-8b at full width and 2 layers, card against CPU in float32
+    and bfloat16 (a float64 run on the card beside them); (c) qwen3-8b at
+    its published size, decode against forward, ``decode_32k`` at batch 4,
+    then on (a)'s weights ``long_500k`` and ``prefill_32k``.  Returns
+    ``(drive, finish)``."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.optimizer import OptConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="lm.", dir=ROOT / "build"))
+    free = shutil.disk_usage(work).free
+    check(free >= LM_FREE_BYTES,
+          f"phase 10: {free / 1e9:.1f} GB free under {work}; the qwen2-1.5b "
+          f"checkpoint takes about 21.3 GB and the phase asks for "
+          f"{LM_FREE_BYTES / 1e9:.0f} GB")
+    argv = ["--arch", LM_ARCH, "--preset", "full", "--batch", str(LM_BATCH),
+            "--seq", str(LM_SEQ), "--microbatches", str(LM_MICROBATCHES),
+            "--steps", str(LM_STEPS), "--device", "cuda", "--ckpt-dir",
+            str(work)]
+
+    def drive():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            trainer = launch_train.main(argv)
+        torch.cuda.synchronize()
+        return {"trainer": trainer, "printed": out.getvalue(),
+                "wall_s": time.perf_counter() - t0, "base_bytes": base,
+                "held_before_phase": held,
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def finish(got: dict, launched: dict) -> dict:
+        t_start = time.perf_counter()
+        trainer = got.pop("trainer")
+        model = trainer.params
+        n_params = sum(p.numel() for p in model.parameters())
+        info = {"card": card, "launches": launched, "config": {
+            "arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "params": n_params, "batch": LM_BATCH,
+            "seq": LM_SEQ, "microbatches": LM_MICROBATCHES,
+            "steps": LM_STEPS}, "train": dict(got)}
+        print(got["printed"], end="", flush=True)
+        check(f"final step={LM_STEPS} loss=" in got["printed"],
+              f"phase 10 (a): no 'final step={LM_STEPS}' line: "
+              f"{got['printed']!r}")
+        check(n_params == LM_PARAMS,
+              f"phase 10 (a): {n_params} parameters, not {LM_PARAMS}")
+        losses = [r["loss"] for r in trainer.metrics_log]
+        check(bool(losses) and all(np.isfinite(losses)),
+              f"phase 10 (a): loss {losses}")
+        init = launch_train.model_for(
+            arch, cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+        still = [k for (k, a), b in zip(init.named_parameters(),
+                                         model.parameters())
+                 if not bool((a != b).any())]
+        del init
+        check(not still, f"phase 10 (a): leaves that did not move: {still}")
+        step_dir = work / LM_ARCH / f"step_{LM_STEPS:012d}"
+        meta = json.loads((step_dir / "meta.json").read_text())
+        saved = torch.load(step_dir / "params.pt", mmap=True,
+                           weights_only=True)
+        rows = saved["k:embed"][:4096]
+        check(meta["step"] == LM_STEPS
+              and trainer.ckpt.all_steps() == [LM_STEPS]
+              and torch.equal(rows, model.embed[:4096].detach().cpu()),
+              "phase 10 (a): the checkpoint does not read back")
+        info["train"]["checkpoint_bytes"] = sum(
+            f.stat().st_size for f in step_dir.iterdir())
+        del saved, rows
+        shutil.rmtree(work / LM_ARCH)
+        info["train"]["losses"] = losses
+        log(f"phase 10 (a) {card}: {LM_ARCH} ({n_params} params) trained "
+            f"{LM_STEPS} steps at batch {LM_BATCH} x {LM_SEQ} in "
+            f"{got['wall_s']:.1f} s (losses {losses}); peak device memory "
+            f"{got['peak_bytes']} B ({got['base_bytes']} B before); "
+            f"checkpoint {info['train']['checkpoint_bytes']} B read back")
+
+        # one step in its parts, then one under the profiler
+        opt_cfg = OptConfig(lr=3e-3, warmup_steps=10, total_steps=LM_STEPS)
+        split, state, batch = lm_step_split(torch, model, trainer.opt_state,
+                                            trainer.stream, LM_STEPS, opt_cfg)
+        prof = profile_query(torch, lambda: trainer.step_fn(model, state,
+                                                            batch))
+        step_ms = split["h2d"] + split["forward_backward"] + split["optimizer"]
+        tokens = LM_BATCH * LM_SEQ
+        dense = n_params - cfg.vocab * cfg.d_model  # the embedding is a gather
+        attn = 12 * cfg.n_layers * LM_BATCH * LM_SEQ ** 2 * cfg.n_heads \
+            * cfg.d_head  # the plain attention's full S x S products
+        flops = 6 * dense * tokens + attn
+        info["step_split_ms"] = split
+        info["profile"] = prof
+        info["model_flops"] = {
+            "per_step": flops, "dense_6nt": 6 * dense * tokens,
+            "attention": attn, "step_ms": step_ms,
+            "tflops_s": flops / (step_ms * 1e-3) / 1e12,
+            "of_bf16_peak": flops / (step_ms * 1e-3) / PEAK_BF16_S}
+        del trainer, state, batch
+        mf = info["model_flops"]
+        log(f"phase 10 {card}: one step: host batch "
+            f"{split['host_batch']:.1f} ms, h2d {split['h2d']:.2f} ms, "
+            f"forward + backward {split['forward_backward']:.1f} ms, AdamW "
+            f"{split['optimizer']:.1f} ms (device timeline); "
+            f"{mf['tflops_s']:.1f} TFLOP/s of model FLOPs, "
+            f"{mf['of_bf16_peak']:.3f} of the bf16 peak; the device is busy "
+            f"{prof['device_busy_share']} of a profiled step "
+            f"({prof['cuda_kernels']} CUDA kernels)")
+
+        # (c) long_500k and prefill_32k on (a)'s weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        b, length, steps = LM_LONG_500K
+        info["long_500k"] = lm_decode_cell(torch, model, b, length, steps,
+                                           seed=5)
+        info["prefill_32k"] = lm_prefill(torch, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 10 (c) {card}: long_500k {info['long_500k']}; "
+            f"prefill_32k {info['prefill_32k']}")
+
+        # (c) qwen3-8b at its published size
+        big_arch = get_arch(LM_DECODE_ARCH)
+        big = lm_model(torch, LM_DECODE_ARCH, big_arch.config, "cuda", seed=2)
+        prompt = torch.from_numpy(TokenStream(
+            vocab=big_arch.config.vocab, batch=2, seq=LM_PROMPT,
+            seed=0).batch_at(0)["tokens"]).cuda()
+        dvf = lm_decode_vs_forward(torch, big, prompt)
+        info["decode_vs_forward"] = dvf
+        for dt, row in dvf.items():
+            check(row["max_abs_of_max"] <= LM_DECODE_TOL[dt],
+                  f"phase 10 (c): {LM_DECODE_ARCH} decode differs from "
+                  f"forward in {dt}: {row}")
+        b, length, steps = LM_DECODE_32K
+        info["decode_32k"] = lm_decode_cell(torch, big, b, length, steps,
+                                            seed=6)
+        info["decode_params"] = sum(p.numel() for p in big.parameters())
+        del big
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 10 (c) {card}: {LM_DECODE_ARCH} decode against forward "
+            f"{ {dt: r['max_abs_of_max'] for dt, r in dvf.items()} }; "
+            f"decode_32k {info['decode_32k']}")
+
+        # (b) full width, depth 2, card against CPU
+        info["card_vs_cpu"] = {}
+        for name in LM_B_ARCHS:
+            got_b = lm_card_vs_cpu(torch, name)
+            info["card_vs_cpu"][name] = got_b
+            log(f"phase 10 (b) {card}: {name}: " + "; ".join(
+                f"{dt} loss {got_b[dt]['loss']} grad norm "
+                f"{got_b[dt]['grad_norm']} worst {got_b[dt]['worst']} "
+                f"({got_b[dt]['cpu_s']:.1f} s; the CPU's gradients "
+                f"{got_b[dt]['cpu_grads_s']:.1f} s, AdamW "
+                f"{got_b[dt]['cpu_adamw_s']:.1f} s)"
+                for dt in ("float32", "bfloat16")))
+            lm_check_b(name, got_b)
+            gc.collect()
+            torch.cuda.empty_cache()
+        shutil.rmtree(work)
+        info["finish_s"] = time.perf_counter() - t_start
+        return info
+
+    return drive, finish
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=1000,
@@ -3470,6 +4097,12 @@ def main(argv=None) -> int:
                          "SMALLEST (torch.save) for tools/kernel_ab.py")
     args = ap.parse_args(argv)
 
+    # large host tensors (phase 10 (b)'s CPU side: 6-10 GB of weights,
+    # gradients and AdamW temporaries) on huge pages: with 4 KB pages the
+    # first touch of every fresh temporary dominated an eager AdamW step
+    # on an 8-core host (3.5-4x slower).  Read by torch at its first CPU
+    # allocation, so set before torch is imported
+    os.environ.setdefault("THP_MEM_ALLOC_ENABLE", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -3554,6 +4187,12 @@ def main(argv=None) -> int:
     zoo["phase_s"] = time.perf_counter() - t_zoo
     del drive, finish
     log(f"phase 9: {zoo['phase_s']:.1f} s")
+    t_lm = time.perf_counter()
+    drive, finish = lm_phase(torch, card)
+    lm = finish(window("lm", drive, recorder=None), by_path["lm"])
+    lm["phase_s"] = time.perf_counter() - t_lm
+    del drive, finish
+    log(f"phase 10: {lm['phase_s']:.1f} s")
 
     table = kernel_table(torch, ops, ref, rec, by_path)
     table.append(gather_row(torch, ops, ref, inputs, outs, by_path))
@@ -3572,7 +4211,7 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "serve": serve,
-              "sharded": sharded, "zoo": zoo,
+              "sharded": sharded, "zoo": zoo, "lm": lm,
               "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}

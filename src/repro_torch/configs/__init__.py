@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution over the archs the
-port has so far (the reference registers ten plus the engine; the rest
-come with later slices)."""
+port has so far: the dense LMs, DLRM and GCN (the reference registers ten
+plus the engine; DeepSeek-V2, DBRX, PNA, MeshGraphNet and DimeNet come
+with later slices)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,9 @@ from repro_torch.configs.common import (ArchDef, Cell, GNN_SHAPES, LM_SHAPES,
                                         RECSYS_SHAPES)
 
 _ARCH_MODULES = {
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
 }

@@ -4,8 +4,7 @@ Each config module defines an ``ArchDef``: the exact published
 configuration, its assigned input-shape cells, input specs as ``meta``
 tensors (shapes and dtypes, no storage: the reference's
 ``ShapeDtypeStruct``s), and a reduced smoke configuration + real batch for
-CPU tests.  Only the recsys and GNN input specs are ported; the LM
-family's come with its slice.
+CPU tests.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ class Cell:
 @dataclass
 class ArchDef:
     name: str
-    family: str  # "gnn" | "recsys"
+    family: str  # "lm" | "gnn" | "recsys"
     config: Any
     cells: dict[str, Cell]
     # (cell_name) -> batch dict of meta tensors
@@ -94,6 +93,22 @@ def sampled_block_dims(batch_nodes: int, fanout) -> tuple[int, int]:
         n += layer
         e += layer
     return n, e
+
+
+def lm_input_specs(cfg, cell_name: str) -> dict:
+    """Train: tokens and labels; prefill: tokens; decode: one new token a
+    sequence against a cache of the cell's length (the port's
+    ``init_cache`` on ``meta``)."""
+    from repro_torch.models.transformer import init_cache
+
+    s = LM_SHAPES[cell_name]
+    if s["kind"] == "train":
+        return {"tokens": sds((s["batch"], s["seq"])),
+                "labels": sds((s["batch"], s["seq"]))}
+    if s["kind"] == "prefill":
+        return {"tokens": sds((s["batch"], s["seq"]))}
+    return {"tokens": sds((s["batch"], 1)),
+            "cache": init_cache(cfg, s["batch"], s["seq"], device="meta")}
 
 
 def gnn_input_specs(cfg, cell_name: str) -> dict:

@@ -12,7 +12,10 @@ planner.
 The zoo's weights carry across the same way: ``params_from_jax`` turns the
 reference's parameter pytree into the port module's ``state_dict`` and
 ``adam_state_from_jax`` its optimizer state, so one trajectory can be
-resumed in both packages.
+resumed in both packages; ``cache_from_jax`` carries an LM's KV cache.
+The reference stacks an LM's layers (``dense_layers.<leaf>`` of shape
+``[L, ...]``); the port holds a module a layer, so those leaves are split
+into ``dense_layers.{i}.<leaf>``.
 """
 
 from __future__ import annotations
@@ -131,17 +134,36 @@ def _named_leaves(tree, prefix: str = "") -> dict:
     return out
 
 
+_STACKED = "dense_layers."
+
+
+def _unstack(named: dict) -> dict:
+    """``dense_layers.<leaf>`` stacked over the layers -> one entry a
+    layer, ``dense_layers.{i}.<leaf>``; other names as they are."""
+    out = {}
+    for k, v in named.items():
+        if k.startswith(_STACKED):
+            leaf = k[len(_STACKED):]
+            for i in range(v.shape[0]):
+                out[f"{_STACKED}{i}.{leaf}"] = v[i]
+        else:
+            out[k] = v
+    return out
+
+
 def params_from_jax(arch_name: str, tree) -> dict:
     """The port module's ``state_dict`` from the reference's parameter
     pytree (leaves as numpy arrays): ``{"tables": [...], "bot": {"w":
-    [...], "b": [...]}, "top": ...}`` for DLRM, ``{"w": [...]}`` for GCN."""
+    [...], "b": [...]}, "top": ...}`` for DLRM, ``{"w": [...]}`` for GCN,
+    ``{"embed", "final_ln", "lm_head", "dense_layers": {...}}`` (layers
+    stacked) for an LM."""
     import torch
 
     from repro_torch.configs import get_arch
 
     get_arch(arch_name)  # raises for an arch not ported
     return {k: torch.from_numpy(np.array(v))
-            for k, v in _named_leaves(tree).items()}
+            for k, v in _unstack(_named_leaves(tree)).items()}
 
 
 def adam_state_from_jax(state):
@@ -154,9 +176,26 @@ def adam_state_from_jax(state):
 
     def named(tree):
         return {k: torch.from_numpy(np.array(v, np.float32))
-                for k, v in _named_leaves(tree).items()}
+                for k, v in _unstack(_named_leaves(tree)).items()}
 
     return AdamWState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
         mu=named(state.mu), nu=named(state.nu),
         err=None if state.err is None else named(state.err))
+
+
+def cache_from_jax(cache) -> dict:
+    """The port's LM KV cache (``transformer.init_cache``'s layout) from
+    the reference's (leaves as numpy arrays; bfloat16 arrives as
+    ``ml_dtypes.bfloat16`` and is carried bit for bit)."""
+    import torch
+
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(a.copy())
+
+    return {"k": tensor(cache["k"]), "v": tensor(cache["v"]),
+            "pos": tensor(np.asarray(cache["pos"], np.int32))}

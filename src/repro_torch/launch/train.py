@@ -4,10 +4,16 @@ Builds the arch's model (reduced or full) on ``--device`` (default
 ``cuda``, which fails without CUDA; ``--device cpu`` runs the kernels'
 plain versions) from a ``torch.Generator`` seeded by ``--seed``, the data
 stream and the train step, and runs the fault-tolerant loop with
-checkpointing.  The ported archs are ``dlrm-rm2`` and ``gcn-cora``:
+checkpointing.  The ported archs are the dense LMs (``qwen2-1.5b``,
+``qwen3-8b``, ``minitron-8b``), ``dlrm-rm2`` and ``gcn-cora``:
 
     python -m repro_torch.launch.train --arch dlrm-rm2 --device cpu --steps 5
     python -m repro_torch.launch.train --arch dlrm-rm2 --preset full --batch 65536
+    python -m repro_torch.launch.train --arch qwen3-8b --device cpu --steps 3
+    python -m repro_torch.launch.train --arch qwen2-1.5b --preset full \
+        --batch 4 --seq 4096 --microbatches 2
+
+An LM under ``--preset full`` needs ``--batch`` and ``--seq``.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ import argparse
 
 from repro_torch.configs import all_archs, get_arch
 from repro_torch.core.exec import resolve_device
-from repro_torch.train.data import RecsysStream, SampledGraphStream
+from repro_torch.train.data import (RecsysStream, SampledGraphStream,
+                                    TokenStream)
 from repro_torch.train.loop import LoopConfig, Trainer
 from repro_torch.train.optimizer import OptConfig, adamw_init
 from repro_torch.train.trainstep import make_train_step, named_params
@@ -25,7 +32,11 @@ from repro_torch.utils import get_logger
 log = get_logger("launch.train")
 
 
-def _stream_for(arch, cfg, args):
+def _stream_for(arch, cfg, example, args):
+    if arch.family == "lm":
+        b, s = (None, None) if example is None else example["tokens"].shape
+        return TokenStream(vocab=cfg.vocab, batch=args.batch or b,
+                           seq=args.seq or s, seed=args.seed)
     if arch.family == "recsys":
         return RecsysStream(n_dense=cfg.n_dense, n_sparse=cfg.n_sparse,
                             hotness=cfg.hotness,
@@ -41,6 +52,11 @@ def _stream_for(arch, cfg, args):
 def model_for(arch, cfg, device, generator):
     """The arch's module on ``device``, its weights drawn from
     ``generator``."""
+    if arch.family == "lm":
+        from repro_torch.models import transformer
+
+        return transformer.TransformerLM(cfg, device=device,
+                                         generator=generator)
     if arch.family == "recsys":
         from repro_torch.models.recsys import dlrm
 
@@ -56,6 +72,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length of an LM's batches")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", action="store_true")
@@ -72,9 +90,14 @@ def build(args: argparse.Namespace) -> Trainer:
     """The model, stream, step and loop of ``args``, not yet run."""
     import torch
 
-    device = resolve_device(args.device)
     arch = get_arch(args.arch)
-    cfg = arch.smoke()[0] if args.preset == "smoke" else arch.config
+    if (arch.family == "lm" and args.preset == "full"
+            and (args.batch is None or args.seq is None)):
+        raise SystemExit(f"--preset full for the LM {args.arch} needs "
+                         f"--batch and --seq (e.g. --batch 4 --seq 4096)")
+    device = resolve_device(args.device)
+    cfg, example = (arch.smoke() if args.preset == "smoke"
+                    else (arch.config, None))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = model_for(arch, cfg, device, gen)
     n_params = sum(p.numel() for p in model.parameters())
@@ -84,7 +107,7 @@ def build(args: argparse.Namespace) -> Trainer:
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps,
                         grad_compress=args.grad_compress)
     opt_state = adamw_init(named_params(model), opt_cfg)
-    stream = _stream_for(arch, cfg, args)
+    stream = _stream_for(arch, cfg, example, args)
     step = make_train_step(arch.loss_fn, model, opt_cfg,
                            microbatches=args.microbatches)
     return Trainer(step, stream,

@@ -1,12 +1,13 @@
-"""Shared neural-net layers of the port (what DLRM and GCN use).
+"""Shared neural-net layers of the port (DLRM, GCN and the dense LM).
 
 Conventions, as in the reference's ``models/layers.py``:
   - weights are ``[in, out]`` and applied as ``x @ w`` (so carrying a
     reference weight across is a copy);
-  - master dtype float32;
+  - master dtype float32, cast to the compute dtype where used;
   - initializers draw from an explicit ``torch.Generator``.
 
-RMSNorm, RoPE, grouped-query attention and SwiGLU come with the LM slice.
+The reference's ``shard_hint`` has no counterpart: sharding comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -28,6 +29,97 @@ def dense_init(in_dim: int, out_dim: int, scale: float | None = None, *,
     if w.device.type != "meta":
         w.normal_(generator=generator).mul_(scale)
     return w
+
+
+def embed_init(vocab: int, dim: int, *,
+               generator: torch.Generator | None = None,
+               device=None) -> torch.Tensor:
+    """``N(0, 1) · 0.02`` of shape ``[vocab, dim]``."""
+    w = torch.empty((vocab, dim), dtype=torch.float32, device=device)
+    if w.device.type != "meta":
+        w.normal_(generator=generator).mul_(0.02)
+    return w
+
+
+# ------------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Statistics in float32, the normalized value cast back to ``x``'s
+    dtype, then times ``gamma`` in that dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * gamma.to(dt) + beta.to(dt)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float = 1e4) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions int [...]: returns (sin, cos) float32 with trailing dim
+    head_dim/2; frequencies ``theta ** (-i / half)`` in float32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation (not interleaved): x [..., H, D]; sin/cos
+    broadcastable [..., 1, D/2], cast to ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin.to(x.dtype)
+    cos = cos.to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# --------------------------------------------------------------- attention
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, q_offset: int = 0,
+                  kv_len=None) -> torch.Tensor:
+    """Grouped-query attention with a float32 softmax: q [B, S, Hq, D], k
+    and v [B, T, Hkv, D].  The logits are computed in q's dtype, then
+    cast to float32; masked logits are -1e30.
+
+    ``q_offset``: absolute position of q[0] (decode: cache length).
+    ``kv_len``: number of valid KV entries (decode with preallocated
+    cache)."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k).float()
+    logits = logits * (1.0 / math.sqrt(d))
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(t, device=q.device)[None, :]
+        logits = torch.where(kpos <= qpos, logits, -1e30)
+    if kv_len is not None:
+        valid = torch.arange(t, device=q.device) < kv_len
+        logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    return out.reshape(b, s, hq, d)
+
+
+# ------------------------------------------------------------------- MLPs
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = torch.nn.functional.silu(x @ w_gate.to(x.dtype)) * (
+        x @ w_up.to(x.dtype))
+    return h @ w_down.to(x.dtype)
 
 
 def mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],

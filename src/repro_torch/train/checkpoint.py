@@ -150,7 +150,10 @@ class Checkpointer:
 
     def restore(self, templates: dict[str, Any], step: int | None = None):
         """Restore trees shaped like ``templates``: ``(step, trees,
-        extra)``, or None when there is no checkpoint."""
+        extra)``, or None when there is no checkpoint.  A write still in
+        flight is waited for first, so a retry restores the checkpoint its
+        loop last saved, not an older one."""
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None

@@ -61,20 +61,35 @@ class Trainer:
         self._preempted = False
 
     # -- preemption ---------------------------------------------------------
-    def _install_handlers(self):
+    def _install_handlers(self) -> dict:
+        """Install the preemption handlers; returns the handlers they
+        replace (none off the main thread)."""
         def handler(signum, frame):
             log.warning("signal %s: will checkpoint and stop", signum)
             self._preempted = True
 
+        old = {}
         try:
-            signal.signal(signal.SIGTERM, handler)
-            signal.signal(signal.SIGINT, handler)
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old[sig] = signal.signal(sig, handler)
         except ValueError:
             pass  # not main thread (tests)
+        return old
 
     # -- main ---------------------------------------------------------------
     def fit(self, start_step: int | None = None) -> int:
-        self._install_handlers()
+        """Train to ``total_steps``; the preemption handlers are the
+        process's only while this runs (the earlier ones come back when it
+        returns, so no handler keeps a finished trainer, its model and its
+        optimizer state alive)."""
+        old = self._install_handlers()
+        try:
+            return self._fit(start_step)
+        finally:
+            for sig, h in old.items():
+                signal.signal(sig, h)
+
+    def _fit(self, start_step: int | None) -> int:
         step = self._maybe_restore() if start_step is None else start_step
         retries = 0
         while step < self.cfg.total_steps and not self._preempted:

@@ -1048,3 +1048,87 @@ def test_cuda_dlrm_small_step_matches_cpu(cuda):
         diff = (p_gpu[k] - want).abs()
         assert float(diff.max()) <= 2 * 3e-3 + 1e-6, k
         assert float((diff > 1e-5).float().mean()) <= 0.01, k
+
+
+# the dense LM at its smoke geometry, card against CPU from the same
+# weights (TF32 off).  float32: values and each gradient leaf within 1e-5
+# (element against the tensor's largest, and norm-wise), the loss within
+# 1e-6.  bfloat16: the card's GEMMs round other float32 sums to bf16, so
+# values within 2e-2 norm-wise and the loss within 1e-3; a gradient leaf
+# lies no farther from the CPU's float32 gradient than twice the CPU's own
+# bf16 gradient does (leaves with much cancellation, a bias of k or a
+# norm's gain, keep no bf16 digits to compare directly)
+LM_SMOKE_F32 = 1e-5
+LM_SMOKE_BF16 = 2e-2
+LM_SMOKE_BF16_LOSS = 1e-3
+LM_SMOKE_BF16_GRAD = 2.0
+
+
+def _lm_smoke_run(name: str, dtype: str, device, state: dict | None):
+    """Forward logits, loss, gradients, 16 decode steps' logits and the
+    cache of the smoke config in ``dtype`` on ``device`` (weights from
+    seed 3 or ``state``), all on the host."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import model_for
+    from repro_torch.models import transformer
+    from repro_torch.train.trainstep import named_params
+
+    arch = get_arch(name)
+    cfg, batch = arch.smoke()
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    model = model_for(arch, cfg, device, torch.Generator(
+        device=device).manual_seed(3))
+    if state is not None:
+        model.load_state_dict(state)
+    b = {k: v.to(device) for k, v in batch.items()}
+    logits, _ = transformer.forward(model, b["tokens"])
+    loss = transformer.loss_fn(model, b)
+    params = named_params(model)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    cache = transformer.init_cache(cfg, 2, 20, device=device)
+    dec = [transformer.decode_step(model, cache, b["tokens"][:, t:t + 1])[0]
+           for t in range(16)]
+    return {"logits": logits.detach().float().cpu(),
+            "loss": float(loss.detach()),
+            "grads": {k: g.float().cpu() for k, g in zip(params, grads)},
+            "decode": torch.cat(dec, 1).float().cpu(),
+            "cache_k": cache["k"].float().cpu(),
+            "cache_v": cache["v"].float().cpu(),
+            "state": {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-8b", "minitron-8b"])
+def test_cuda_lm_smoke_forward_grads_decode_match_cpu(cuda, name, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu32 = _lm_smoke_run(name, "float32", "cpu", None)
+    cpu = _lm_smoke_run(name, dtype, "cpu", cpu32["state"])
+    gpu = _lm_smoke_run(name, dtype, cuda, cpu32["state"])
+    values = ("logits", "decode", "cache_k", "cache_v")
+    if dtype == "float32":
+        for k in values:
+            want = cpu[k]
+            assert float((gpu[k] - want).abs().max()) <= \
+                LM_SMOKE_F32 * float(want.abs().max()), k
+        assert gpu["loss"] == pytest.approx(cpu["loss"], rel=1e-6)
+        for k, want in cpu["grads"].items():
+            got = gpu["grads"][k]
+            assert float((got - want).abs().max()) <= \
+                LM_SMOKE_F32 * float(want.abs().max()), k
+            assert _rel(got, want) <= LM_SMOKE_F32, k
+        return
+    for k in values:
+        assert _rel(gpu[k], cpu[k]) <= LM_SMOKE_BF16, k
+    assert gpu["loss"] == pytest.approx(cpu["loss"], rel=LM_SMOKE_BF16_LOSS)
+    for k, truth in cpu32["grads"].items():
+        cpu_err = float((cpu["grads"][k] - truth).norm())
+        assert float((gpu["grads"][k] - truth).norm()) <= \
+            LM_SMOKE_BF16_GRAD * cpu_err, k

@@ -65,12 +65,18 @@ import repro_torch.configs.common
 import repro_torch.configs.dlrm_rm2
 import repro_torch.configs.gcn_cora
 import repro_torch.configs.gnn_common
+import repro_torch.configs.lm_common
+import repro_torch.configs.minitron_8b
+import repro_torch.configs.qwen2_1p5b
+import repro_torch.configs.qwen3_8b
+import repro_torch.convert
 import repro_torch.kernels.autograd
 import repro_torch.models.gnn.common
 import repro_torch.models.gnn.gcn
 import repro_torch.models.gnn.sampler
 import repro_torch.models.layers
 import repro_torch.models.recsys.dlrm
+import repro_torch.models.transformer
 import repro_torch.train.checkpoint
 import repro_torch.train.data
 import repro_torch.train.loop
@@ -79,10 +85,15 @@ import repro_torch.train.straggler
 import repro_torch.train.trainstep
 from repro_torch.launch import train as launch_train
 with tempfile.TemporaryDirectory() as d:
-    for arch in ("dlrm-rm2", "gcn-cora"):
+    for arch in ("dlrm-rm2", "gcn-cora", "qwen3-8b"):
         tr = launch_train.main(["--arch", arch, "--device", "cpu", "--steps",
                                 "2", "--ckpt-dir", d])
         assert tr.ckpt.latest_step() == 2
+from repro_torch.models import transformer
+lm = tr.params
+cache = transformer.init_cache(lm.cfg, 1, 8, device="cpu")
+logits, cache = transformer.decode_step(lm, cache, torch.zeros((1, 3), dtype=torch.int32))
+assert logits.shape == (1, 3, lm.cfg.vocab) and int(cache["pos"]) == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.startswith("jax")
              or m.startswith("jaxlib"))

@@ -480,24 +480,30 @@ def test_http_forced_trace_matches_reference(servers):
     assert steps and gt["profiled"] and gt["dataset"] == "lubm"
 
 
-# the reference scheduler's two deadline texts: the waiter's own timeout,
-# and a worker failing a flight whose deadline passed while it was queued
+# the reference scheduler's three deadline texts: the waiter's own
+# timeout; a worker failing a flight whose deadline passed while it was
+# queued; and the server's text for the engine's cooperative check, which
+# fires at a chunk boundary when the worker took the flight in time but
+# the deadline passed while it ran, and the flight finished cancelled
+# before its waiter woke (the waiter then reads the flight's error)
 WAITED_OUT = "no result within 0.001s"
 EXPIRED_QUEUED = "expired while queued (admission backlog)"
+CANCELLED_RUNNING = "cancelled: query cancelled: deadline exceeded"
 
 
 def test_http_deadline_on_uncompiled_query_is_504(servers):
     """A deadline of 1 ms on a query not compiled yet: 504 from both,
-    whether it expired while queued or while it ran (the wall clock
-    decides which, and so which of the scheduler's two deadline texts the
-    body carries and what the journal and counters saw: this runs after
-    every comparison of them)."""
+    whether it expired while queued, while it ran, or while its waiter
+    slept (the wall clock decides which, and so which of the three
+    deadline texts the body carries and what the journal and counters
+    saw: this runs after every comparison of them)."""
     path = _q(LUBM_QUERIES["Q5"], timeout_ms=1)
     got, want = (_request(s, "GET", path) for s in servers)
     assert got[0] == want[0] == 504
     for body in (got[2], want[2]):
         msg = body["error"]
-        assert msg.startswith(WAITED_OUT) or msg == EXPIRED_QUEUED, msg
+        assert (msg.startswith(WAITED_OUT)
+                or msg in (EXPIRED_QUEUED, CANCELLED_RUNNING)), msg
     assert set(got[2]) == set(want[2])
 
 
@@ -563,6 +569,77 @@ def test_http_deadline_expired_in_queue_is_504(servers):
     got, want = (_expire_in_queue(s, path) for s in servers)
     assert got[0] == want[0] == 504
     assert got[2]["error"] == want[2]["error"] == EXPIRED_QUEUED
+    assert set(got[2]) == set(want[2])
+
+
+class _StoppedClock:
+    """A ``time`` module whose ``monotonic`` stands still at the instant
+    it was made; everything else is the real module's."""
+
+    def __init__(self):
+        self.now = time.monotonic()
+
+    def monotonic(self):
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def _cancel_while_running(srv, path):
+    """Send ``path`` so that its deadline passes while a worker runs it:
+    the scheduler's clock stands still for the request, so the worker that
+    takes the flight finds it alive however late it wakes; the execution
+    is held until the flight's token (on the real clock) has expired, so
+    the engine's cooperative check raises ``QueryCancelled``; and the
+    submitting thread is held just after it queued its flight until the
+    flight has finished, so it reads that error rather than timing out.
+    Returns the response."""
+    sched = srv.scheduler
+    reg = sched.registry
+    armed = threading.Event()
+    mp = pytest.MonkeyPatch()
+
+    def held(fn):
+        def run(*args, **kwargs):
+            cancel = kwargs["cancel"]
+            t_end = time.monotonic() + 60
+            while not cancel.expired and time.monotonic() < t_end:
+                time.sleep(0.001)
+            assert cancel.expired, "the flight's deadline never passed"
+            return fn(*args, **kwargs)
+        return run
+
+    gauge = sched.metrics.inflight
+    inc = gauge.inc
+
+    def inc_after_queueing(amount=1.0):
+        if amount > 0 and armed.is_set():
+            armed.clear()
+            t_end = time.monotonic() + 60
+            while sched._inflight and time.monotonic() < t_end:
+                time.sleep(0.005)
+        inc(amount)
+
+    mp.setattr(sys.modules[type(sched).__module__], "time", _StoppedClock())
+    mp.setattr(reg, "execute_canonical", held(reg.execute_canonical))
+    mp.setattr(reg, "execute_canonical_batch",
+               held(reg.execute_canonical_batch))
+    mp.setattr(gauge, "inc", inc_after_queueing)
+    try:
+        armed.set()
+        return _request(srv, "GET", path)
+    finally:
+        mp.undo()
+
+
+def test_http_deadline_cancelled_while_running_is_504(servers):
+    """With the deadline passing while the flight runs, both servers
+    answer 504 with the cooperative check's text."""
+    path = _q(LUBM_QUERIES["Q5"], timeout_ms=1)
+    got, want = (_cancel_while_running(s, path) for s in servers)
+    assert got[0] == want[0] == 504
+    assert got[2]["error"] == want[2]["error"] == CANCELLED_RUNNING
     assert set(got[2]) == set(want[2])
 
 

@@ -336,6 +336,25 @@ def test_loop_runs_and_checkpoints(tmp_path):
     assert [r["step"] for r in trainer.metrics_log] == [10, 20, 30]
 
 
+def test_loop_restores_signal_handlers_after_fit(tmp_path):
+    """The preemption handlers hold the trainer: once ``fit`` returns,
+    the process's earlier handlers are back, and nothing keeps the
+    finished trainer (and its tensors) alive."""
+    import gc
+    import signal
+    import weakref
+
+    before = signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT)
+    trainer, _ = _toy_setup(tmp_path, total=3)
+    assert trainer.fit() == 3
+    assert (signal.getsignal(signal.SIGTERM),
+            signal.getsignal(signal.SIGINT)) == before
+    ref = weakref.ref(trainer)
+    del trainer
+    gc.collect()
+    assert ref() is None
+
+
 def test_loop_retries_from_checkpoint(tmp_path):
     trainer, calls = _toy_setup(tmp_path, total=25, fail_at=17)
     end = trainer.fit()
