@@ -68,8 +68,11 @@ Phases, each fatal on failure (no phase's error is caught):
    the constant baked in; one lane's constant is missing, and a 64-lane
    batch run with a small capacity slack must rerun an overflowing lane
    alone;
-6. each engine kernel's wrapper on the largest inputs the main path gave
-   it (phases 4-5c), and the kernels of ``SMALLEST`` also on the smallest,
+6. (run after phase 7, and its ``segment_gather`` row right after the
+   gather window, so that neither the recorded calls nor the gather
+   inputs stay on the card into phases 9-11) each engine kernel's wrapper
+   on the largest inputs the main path gave it (phases 4-5c), and the
+   kernels of ``SMALLEST`` also on the smallest,
    held bit-equal against its plain version and timed beside it with CUDA
    events, with its byte bound (and, for ``signature_filter`` and
    ``bitmap_superset``'s ids form, the distinct 32-byte sectors its
@@ -180,7 +183,44 @@ Phases, each fatal on failure (no phase's error is caught):
    card (the truth both sides are measured against) recorded beside them.
    Cuts: depth (steps, (b)'s layers), batch ((a) 4, ``decode_32k`` 4) and
    the prefill length, each for the reason given; widths are the
-   published ones.
+   published ones;
+11. moe (after phase 10, whose models are freed first): (a)
+   deepseek-v2-236b at its published widths (MLA with q_lora 1536,
+   kv_lora 512, 128 heads; 160 routed experts top-6 and 2 shared, d_ff
+   1536; vocab 102,400), depth cut from 60 to 2 (its dense first layer
+   and one MoE layer; 5,358,649,344 parameters, 21.4 GB in float32: the
+   whole model would be 943 GB), from seeded weights: a 32-token prompt at
+   batch 2 fed token by token through ``decode_step`` (the absorbed MLA
+   cache) equals ``forward`` at every position within ``MOE_DECODE_TOL``
+   in float32 and bfloat16 compute, run with capacity_factor = E / k (26.7)
+   so that no token can be dropped, as the reference's own
+   ``test_mla_decode_matches_forward`` raises it (a decode step routes B
+   tokens, the forward B·S, so at the published 1.25 they drop different
+   ones); then at the published capacity ``decode_32k`` at its published
+   batch of 128 (a 9.66 GB cache filled from a seed, ``pos`` = 32768 - 8,
+   8 steps, each timed beside its bound, and the share of (token, expert)
+   assignments one more step drops at capacity 6), ``long_500k`` (batch
+   1, a 1.21 GB cache, 4 steps) and ``prefill_32k`` at batch 1 and the
+   longest multiple of 4096 whose plain attention fits (one layer's
+   float32 logits take 128 · S² · 4 B, 34.4 GB at 8192); the cache holds
+   1,152 B a token and layer against 81,920 B for a full 128-head K/V;
+   (c) dbrx-132b at its published widths, depth cut from 40 to 2
+   (7,751,270,400 parameters, 31.0 GB): decode against forward as in (a)
+   (capacity_factor 4), ``decode_32k`` at the largest batch that fits
+   (at 128 its GQA cache alone is 34.4 GB, and each step widens a layer's
+   keys to float32) and prefill as in (a) (48 · S² · 4 B a layer); (d)
+   ``launch.train.main`` trains each arch's smoke preset for 3 steps on
+   the card: ``final step=3``, finite losses, every leaf moved, the
+   routers included; (b) DeepSeek at depth 2 and DBRX at depth 1 (at 2 its
+   weights, two gradient sets and the saved bf16 casts come to about 81
+   GB), batch 2 x 64, card against CPU in float32 and bfloat16: the loss
+   with aux, the gradient norm and each gradient leaf norm-wise within the
+   ``MOE_*`` tolerances, two card runs equal bit for bit (the MoE
+   dispatch and combine are deterministic), beside a float64 run on the
+   card taken in passes (DeepSeek's float64 weights and gradients at once
+   would take 86 GB).  Cuts: depth ((a), (c) 2; (b) 2 and 1), DBRX's
+   ``decode_32k`` batch and both prefill lengths, each for the reason
+   given; widths are the published ones.
 
 The run drives eight paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
@@ -198,7 +238,12 @@ zoo path (phase 9 (a): ``launch.train.main``'s three RM-2 steps, its
 model build and final checkpoint; 78 ``segment_gather`` launches) and the
 lm path (phase 10 (a): ``launch.train.main``'s three qwen2-1.5b steps, its
 model build and final checkpoint; the reference's LM reaches no Pallas
-kernel, so this window expects none of the seven).  The
+kernel, so this window expects none of the seven), and the moe path
+(phase 11 (a), (c) and (d): the forward and decode calls and the smoke
+presets' training; the reference's MoE and MLA are plain ``jnp`` too, so
+none of the seven).  The device memory still allocated before phases
+9, 10 and 11 is logged and recorded (``held`` and each phase's
+``held_before_phase``).  The
 kernels' launch counters are set to 0 just before a window and read just
 after it; a kernel of a path launched no time in that path's window fails
 the run.  The last lines are the ``kernels`` JSON object (``launches`` is
@@ -291,6 +336,9 @@ PATH_KERNELS = {
     # phase 10: the reference's LM is plain jnp (einsum attention, x @ w
     # products): no Pallas kernel, so none of the seven
     "lm": (),
+    # phase 11: the reference's MoE and MLA are plain jnp too (einsums,
+    # argsort, searchsorted, scatters), so none of the seven
+    "moe": (),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -2678,10 +2726,10 @@ def profile_queries(torch, eng) -> dict:
     return out
 
 
-def kernel_table(torch, ops, ref, rec: Recorder,
-                 by_path: dict[str, dict]) -> list:
-    """Phase 6: each kernel at the main path's largest shapes.
-    ``by_path`` holds each path's launch counts."""
+def kernel_table(torch, ops, ref, rec: Recorder) -> list:
+    """Phase 6: each engine kernel at the main path's largest shapes (the
+    recorded calls of the static, params and live windows).  The rows'
+    launch counts are filled in at the end (``fill_launches``)."""
     plains = plain_kernels(ref)
 
     def timed_call(name, rows, args, kw) -> dict:
@@ -2747,16 +2795,23 @@ def kernel_table(torch, ops, ref, rec: Recorder,
             rows = (*rows, int(args[9].sum().item()))
         source, replaces = KERNEL_INFO[name]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces,
-               "launches": sum(int(c[name]) for c in by_path.values()),
-               "launches_by_path": {p: int(c[name])
-                                    for p, c in by_path.items()},
-               "library_ms": None, **timed_call(name, rows, args, kw)}
+               "replaces": replaces, "library_ms": None,
+               **timed_call(name, rows, args, kw)}
         if name in SMALLEST:
             row["smallest"] = timed_call(name, *rec.smallest[name])
             row["launch_floor_ms"] = floor
         table.append(row)
     return table
+
+
+def fill_launches(table: list, by_path: dict[str, dict]) -> None:
+    """Each row's launches: the sum over the windows, and each window's
+    count (host dicts read after each window)."""
+    for row in table:
+        name = row["name"]
+        row["launches"] = sum(int(c[name]) for c in by_path.values())
+        row["launches_by_path"] = {p: int(c[name])
+                                   for p, c in by_path.items()}
 
 
 def launch_floor_ms(torch) -> float:
@@ -2821,7 +2876,7 @@ def drive_gather(torch, ops, inputs) -> dict:
     return out
 
 
-def gather_row(torch, ops, ref, inputs, outs, by_path) -> dict:
+def gather_row(torch, ops, ref, inputs, outs) -> dict:
     """Phase 6, ``segment_gather``: both entry points held against their
     plain versions (the ragged one summed over edge chunks, since the plain
     version at once would gather a 24.7 GB ``table[indices]``) and timed
@@ -2893,11 +2948,8 @@ def gather_row(torch, ops, ref, inputs, outs, by_path) -> dict:
     source, replaces = KERNEL_INFO["segment_gather"]
     row = {
         "name": "segment_gather", "route": "cuda", "source": source,
-        "replaces": replaces,
-        "launches": sum(int(c["segment_gather"]) for c in by_path.values()),
-        "launches_by_path": {p: int(c["segment_gather"])
-                             for p, c in by_path.items()},
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "replaces": replaces, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms,
         "bound_ms": max(byts / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3,
         "bound_by": by, "library_ms": library_ms,
         "shape_rows": (RM2["bags"], RM2["hotness"]), "bytes": byts,
@@ -3588,15 +3640,22 @@ def lm_grads(torch, model, batch) -> tuple[float, dict]:
     return float(loss), grads
 
 
-def lm_rel(torch, a, b) -> float:
-    """||a - b|| / ||b|| on ``a``'s device: the difference in float32 (of
-    two close float32 tensors: exact or nearly), the norms summed in
-    float64."""
-    from torch.linalg import vector_norm
+# elements a step of lm_rel / moe_digest: a 5 GB leaf then needs no 15 GB
+# of temporaries
+CHUNK = 1 << 26
 
-    b = b.to(a.device, torch.float32)
-    return float(vector_norm(a.float() - b, dtype=torch.float64)
-                 / vector_norm(b, dtype=torch.float64).clamp(min=1e-300))
+
+def lm_rel(torch, a, b) -> float:
+    """||a - b|| / ||b|| on ``a``'s device, ``b`` brought over a chunk at a
+    time and the squares summed in float64."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for lo in range(0, a.numel(), CHUNK):
+        x = a[lo:lo + CHUNK].double()
+        y = b[lo:lo + CHUNK].to(a.device, torch.float64)
+        num += float(torch.sum((x - y) ** 2))
+        den += float(torch.sum(y * y))
+    return (num / max(den, 1e-300)) ** 0.5
 
 
 def lm_card_vs_cpu(torch, name: str) -> dict:
@@ -3753,25 +3812,30 @@ def lm_decode_vs_forward(torch, model, tokens) -> dict:
 
 
 def lm_decode_cell(torch, model, batch: int, length: int, steps: int,
-                   seed: int) -> dict:
+                   seed: int, what: str = "phase 10 (c)",
+                   after=None) -> dict:
     """A decode cell: a cache of ``length`` filled from ``seed`` (N(0, 1)
-    keys and values), ``pos`` = length - steps, then ``steps`` decode steps
-    of one token a sequence, each timed with CUDA events; the logits must be
-    finite and ``pos`` must reach ``length``.  The bound is the bytes a step
-    must read, the float32 weights and the whole cache, over the card's
-    memory rate."""
+    keys and values, or MLA's c_kv and RoPE keys), ``pos`` = length -
+    steps, then ``steps`` decode steps of one token a sequence, each timed
+    with CUDA events; the logits must be finite and ``pos`` must reach
+    ``length``.  The bound is the bytes a step must read, the float32
+    weights and the whole cache, over the card's memory rate.  ``after``,
+    if given, is called with the model, the full cache and one more batch
+    of tokens once the timed steps are done; its result goes under
+    ``after``."""
     from repro_torch.models import transformer
 
     cfg = model.cfg
     cache = transformer.init_cache(cfg, batch, length, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cache["k"].normal_(generator=gen)
-    cache["v"].normal_(generator=gen)
+    entries = [k for k in cache if k != "pos"]
+    for k in entries:
+        cache[k].normal_(generator=gen)
     cache["pos"].fill_(length - steps)
-    tokens = torch.randint(0, cfg.vocab, (steps, batch, 1), generator=gen,
-                           device="cuda", dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab, (steps + 1, batch, 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
     cache_bytes = sum(cache[k].numel() * cache[k].element_size()
-                      for k in ("k", "v"))
+                      for k in entries)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     times = []
@@ -3784,25 +3848,29 @@ def lm_decode_cell(torch, model, batch: int, length: int, steps: int,
         times.append(ev)
         check(bool(torch.isfinite(logits).all())
               and tuple(logits.shape) == (batch, 1, cfg.vocab),
-              f"phase 10 (c): decode step {i} at cache {length} gave "
+              f"{what}: decode step {i} at cache {length} gave "
               f"logits {tuple(logits.shape)}, not all finite")
     torch.cuda.synchronize()
     check(int(cache["pos"]) == length,
-          f"phase 10 (c): pos {int(cache['pos'])} after {steps} steps, not "
+          f"{what}: pos {int(cache['pos'])} after {steps} steps, not "
           f"{length}")
     ms = [a.elapsed_time(z) for a, z in times]
+    out = {"batch": batch, "cache_len": length, "steps": steps,
+           "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
+           "ms_per_step": ms,
+           "bound_ms": (cache_bytes + weight_bytes) / PEAK_BYTES_S * 1e3}
+    if after is not None:
+        out["after"] = after(model, cache, tokens[steps])
     del cache
-    return {"batch": batch, "cache_len": length, "steps": steps,
-            "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
-            "ms_per_step": ms,
-            "bound_ms": (cache_bytes + weight_bytes) / PEAK_BYTES_S * 1e3}
+    return out
 
 
-def lm_prefill(torch, model) -> dict:
-    """``prefill_32k`` at batch 1: the forward's peak memory at
-    ``LM_PREFILL_PROBES`` lengths, fitted as a + b·S + c·S², picks the
-    longest multiple of ``LM_PREFILL_STEP`` up to ``LM_PREFILL_MAX`` that fits in 90% of
-    the free device memory; that forward is timed (no gradients) and its
+def lm_prefill(torch, model, probes=LM_PREFILL_PROBES,
+               what: str = "phase 10 (c)") -> dict:
+    """``prefill_32k`` at batch 1: the forward's peak memory at ``probes``
+    lengths, fitted as a + b·S + c·S², picks the longest multiple of
+    ``LM_PREFILL_STEP`` up to ``LM_PREFILL_MAX`` that fits in 90% of the
+    free device memory; that forward is timed (no gradients) and its
     logits must be finite."""
     from repro_torch.models import transformer
 
@@ -3817,7 +3885,7 @@ def lm_prefill(torch, model) -> dict:
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated() - base
 
-    xs = np.array(LM_PREFILL_PROBES, np.float64)
+    xs = np.array(probes, np.float64)
     ys = np.array([peak(int(s)) for s in xs], np.float64)
     c, b, a = np.polyfit(xs, ys, 2)
     torch.cuda.empty_cache()
@@ -3825,7 +3893,7 @@ def lm_prefill(torch, model) -> dict:
     fits = [s for s in range(LM_PREFILL_STEP, LM_PREFILL_MAX + 1,
                              LM_PREFILL_STEP)
             if a + b * s + c * s * s <= 0.9 * free]
-    check(bool(fits), f"phase 10 (c): no prefill length fits {free} B")
+    check(bool(fits), f"{what}: no prefill length fits {free} B")
     s = fits[-1]
     tok = torch.randint(0, model.cfg.vocab, (1, s), device="cuda",
                         dtype=torch.int32)
@@ -3841,11 +3909,10 @@ def lm_prefill(torch, model) -> dict:
     torch.cuda.synchronize()
     ok = bool(torch.isfinite(logits).all())
     check(ok and tuple(logits.shape) == (1, s, model.cfg.vocab),
-          f"phase 10 (c): prefill at {s} gave logits {tuple(logits.shape)}")
+          f"{what}: prefill at {s} gave logits {tuple(logits.shape)}")
     del logits
     cfg = model.cfg
-    return {"seq": s, "probe_peaks": dict(zip(LM_PREFILL_PROBES,
-                                              ys.tolist())),
+    return {"seq": s, "probe_peaks": dict(zip(probes, ys.tolist())),
             "fit_bytes_at_32768": a + b * 32768 + c * 32768 ** 2,
             "free_bytes": free, "peak_bytes": torch.cuda.max_memory_allocated()
             - base, "ms": ev[0].elapsed_time(ev[1]),
@@ -4087,6 +4154,558 @@ def lm_phase(torch, card: str):
     return drive, finish
 
 
+# ------------------------------------------------------------ phase 11: moe
+
+# (a): deepseek-v2-236b (configs/deepseek_v2_236b.py) at full width, depth
+# cut from 60 to 2 layers (its dense first layer and one MoE layer:
+# 5,358,649,344 parameters by LMConfig.param_count, which leaves out the
+# norms' gains, 21.4 GB in float32; all 60 layers would hold 943 GB); (c):
+# dbrx-132b (configs/dbrx_132b.py) at full width, depth cut from 40 to 2
+# (two MoE layers: 7,751,270,400 parameters, 31.0 GB)
+MOE_A_ARCH = "deepseek-v2-236b"
+MOE_A_PARAMS = 5_358_649_344
+MOE_C_ARCH = "dbrx-132b"
+MOE_C_PARAMS = 7_751_270_400
+MOE_LAYERS = 2
+# decode against forward: a 32-token prompt at batch 2 (TokenStream seed 0)
+MOE_PROMPT = 32
+# decode_32k at DeepSeek's published batch of 128 (its MLA cache at depth
+# 2 is 9.66 GB); DBRX's batch is the largest that fits (its GQA cache at
+# 128 lanes would be 34.4 GB, and each step widens a layer's keys to
+# float32), reckoned from one step's peak at MOE_DECODE_PROBE lanes
+MOE_DECODE_32K = (128, 32768, 8)  # batch, cache length, steps
+MOE_LONG_500K = (1, 524288, 4)
+MOE_DECODE_PROBE = 4
+# prefill: one layer's float32 logits are 128 · S² · 4 B for DeepSeek
+# (8.6 GB at 4096, 34.4 GB at 8192) and 48 · S² · 4 B for DBRX, so the
+# probes stay short
+MOE_PREFILL_PROBES = (1024, 2048, 3072)
+# (b): card against CPU at full width, batch 2 x 64 (TokenStream seed 0):
+# DeepSeek at depth 2, DBRX at depth 1 (at depth 2 its weights, two sets
+# of gradients and the saved bf16 casts come to about 81 GB); the float64
+# truth runs on the card in passes, each taking the gradients of leaves
+# holding at most MOE_TRUTH_PASS_BYTES in float64 (DeepSeek's whole
+# float64 model and gradients would take 86 GB)
+MOE_B_LAYERS = {MOE_A_ARCH: 2, MOE_C_ARCH: 1}
+MOE_B_BATCH = 2
+MOE_B_SEQ = 64
+MOE_TRUTH_PASS_BYTES = 16e9
+# (d): each arch's smoke preset through launch.train.main
+MOE_TRAIN_STEPS = 3
+MOE_FREE_BYTES = 1e9
+# (b)'s tolerances, card against CPU, from the first chip run of (b)
+# (H100, PERF.md §6): two card runs are equal bit for bit, and each
+# device's gradients lie from the float64 run's by up to 3.7e-6 (card)
+# and 2.4e-6 (CPU) norm-wise a leaf in float32, so two devices can differ
+# by the sum: a leaf within 3e-5 (measured 3.9e-6), as phase 10.  In
+# bfloat16 the router's bf16 logits send some tokens to other experts
+# than the float64 run does, and the two devices' rounding differs
+# likewise: the expert stacks (w_gate, w_up, w_down) lie 0.158 (card) and
+# 0.176 (CPU) from float64, the other leaves up to 0.088 and 0.100 (the
+# router), so a leaf within 0.35 and 0.2 (measured 0.126 and 0.045; a
+# wrong gradient misses by 1 or more).  The loss: within 1e-6 (float32,
+# measured 8e-8) and 6e-4 (bfloat16: 2.8e-4 and 2.5e-4 from float64;
+# measured 3.8e-5); the gradient norm within 1e-5 and 1e-3 (7.2e-4 and
+# 1.9e-4 from float64; measured 6.8e-8 and 5.2e-4)
+MOE_LOSS_RTOL = {"float32": 1e-6, "bfloat16": 6e-4}
+MOE_GNORM_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+MOE_GRAD_RTOL = {"float32": 3e-5, "bfloat16": 0.2}
+MOE_EXPERT_GRAD_RTOL = {"float32": 3e-5, "bfloat16": 0.35}
+MOE_EXPERT_LEAVES = (".moe.w_gate", ".moe.w_up", ".moe.w_down")
+# decode against forward (capacity_factor = E / k: no token dropped): the
+# largest difference of a position's logits over the forward's largest
+# |logit|, and the median position's.  In float32 the two sum in other
+# orders (measured 3.0e-6 DeepSeek, 4.2e-6 DBRX; held to phase 10's
+# 5e-5).  In bfloat16 a router's near-tie can pick another expert for a
+# token in a decode step (2 rows) than in the forward (64 rows), whose
+# bf16 products round otherwise; that token's logits then move by another
+# expert's output.  The first chip run of this phase measured 0.184 at 3
+# of DBRX's 32 positions (median 0.0125) and 0.083 for DeepSeek against
+# phase 10's dense bound of 0.1 (qwen3-8b: 0.020), so the largest
+# position is held to 0.25 and the median one, where no expert flipped,
+# to 0.03
+MOE_DECODE_TOL = {"float32": 5e-5, "bfloat16": 0.25}
+MOE_DECODE_MEDIAN_TOL = {"float32": 5e-5, "bfloat16": 0.03}
+
+
+def moe_drops(torch, model, cache, tokens) -> dict:
+    """One more decode step of ``tokens`` on ``cache`` with each MoE
+    layer's routing counted: per layer the tokens it routed together, its
+    capacity and the share of (token, expert) assignments ``moe_apply``
+    drops (those past capacity, and the one at C - 1 of an expert over
+    it)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+
+    counted = []
+    orig = transformer.moe_apply
+
+    def counting(moe, x, mcfg):
+        _, top_i, _ = moe_mod.route(x, moe.router, mcfg)
+        count = torch.bincount(top_i.reshape(-1), minlength=mcfg.n_experts)
+        cap = moe_mod.capacity(x.shape[0], mcfg)
+        kept = torch.where(count > cap, cap - 1, count).sum()
+        counted.append((x.shape[0], cap, kept, top_i.numel()))
+        return orig(moe, x, mcfg)
+
+    transformer.moe_apply = counting
+    try:
+        transformer.decode_step(model, cache, tokens)
+    finally:
+        transformer.moe_apply = orig
+    return {"layers": [{"tokens": t, "cap": c,
+                        "dropped_share": 1.0 - int(kept) / n}
+                       for t, c, kept, n in counted]}
+
+
+def moe_decode_batch(torch, model, length: int) -> dict:
+    """The largest decode batch, a multiple of 8 up to 128, whose step fits
+    in 90% of the free device memory, reckoned from above: one step's peak
+    (the cache included) at ``MOE_DECODE_PROBE`` lanes, plus for each lane
+    more its cache and the most a GQA step adds a lane (one layer's keys
+    widened to float32, twice, and three float32 copies of its logits).
+    The two probes of a fit would both see the MoE layer's weight casts,
+    not the attention's widening, so the lanes' cost is counted, not
+    fitted."""
+    from repro_torch.models import transformer
+
+    cfg = model.cfg
+    b0 = MOE_DECODE_PROBE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cache = transformer.init_cache(cfg, b0, length, device="cuda")
+    cache["pos"].fill_(length - 1)
+    tok = torch.zeros((b0, 1), dtype=torch.int32, device="cuda")
+    logits, cache = transformer.decode_step(model, cache, tok)
+    torch.cuda.synchronize()
+    probe = torch.cuda.max_memory_allocated() - base
+    cache_lane = sum(v[:, :1].numel() * v.element_size()
+                     for k, v in cache.items() if k != "pos")
+    del logits, cache
+    per_lane = cache_lane + 2 * length * cfg.n_kv_heads * cfg.d_head * 4 \
+        + 3 * cfg.n_heads * length * 4
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    fits = [b for b in range(8, 129, 8)
+            if probe + per_lane * (b - b0) <= 0.9 * free]
+    check(bool(fits), f"phase 11: no decode batch fits {free} B")
+    return {"batch": fits[-1], "probe_lanes": b0, "probe_peak": probe,
+            "per_lane_bytes": per_lane, "free_bytes": free}
+
+
+def moe_cut(torch, name: str, layers: int, device, seed: int):
+    """``name``'s published config at ``layers`` layers, its weights drawn
+    from ``seed`` on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(name).config, n_layers=layers)
+    return lm_model(torch, name, cfg, device, seed=seed)
+
+
+def moe_serve(torch, name: str, seed: int, decode_batch, what: str) -> dict:
+    """(a) or (c) for one arch at ``MOE_LAYERS`` layers: decode against
+    forward with no token dropped (capacity_factor = E / k, as the
+    reference's own test raises it), then at the published capacity
+    ``decode_32k`` (``decode_batch`` lanes, or the largest that fits when
+    None) with the dropped share of one more step, ``long_500k`` for MLA,
+    and ``prefill_32k``.  Each part's peak device memory above what the
+    phase started with is recorded."""
+    import dataclasses
+    import gc
+
+    from repro_torch.train.data import TokenStream
+
+    out = {}
+    base_bytes = torch.cuda.memory_allocated()
+
+    def part(key, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[key] = fn()
+        torch.cuda.synchronize()
+        out.setdefault("peak_bytes", {})[key] = \
+            torch.cuda.max_memory_allocated() - base_bytes
+        out.setdefault("wall_s", {})[key] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model = moe_cut(torch, name, MOE_LAYERS, "cuda", seed)
+    cfg = model.cfg
+    out["params"] = sum(p.numel() for p in model.parameters())
+    # LMConfig.param_count's count: the matrices, not the norms' gains
+    out["matrix_params"] = sum(p.numel() for p in model.parameters()
+                               if p.dim() > 1)
+    out["param_count"] = cfg.param_count()
+    out["weight_bytes"] = torch.cuda.memory_allocated() - base_bytes
+    m = cfg.moe
+    prompt = torch.from_numpy(TokenStream(
+        vocab=cfg.vocab, batch=2, seq=MOE_PROMPT, seed=0).batch_at(0)[
+            "tokens"]).cuda()
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    part("decode_vs_forward",
+         lambda: lm_decode_vs_forward(torch, model, prompt))
+    model.cfg = cfg
+    b, length, steps = MOE_DECODE_32K
+    if decode_batch is None:
+        part("decode_batch", lambda: moe_decode_batch(torch, model, length))
+        b = out["decode_batch"]["batch"]
+    part("decode_32k", lambda: lm_decode_cell(
+        torch, model, b, length, steps, seed=seed + 10, what=what,
+        after=lambda mdl, cache, tok: moe_drops(torch, mdl, cache, tok)))
+    if cfg.attn == "mla":
+        b, length, steps = MOE_LONG_500K
+        part("long_500k", lambda: lm_decode_cell(
+            torch, model, b, length, steps, seed=seed + 20, what=what))
+    part("prefill_32k", lambda: lm_prefill(torch, model, MOE_PREFILL_PROBES,
+                                           what))
+    del model
+    return out
+
+
+def moe_train(torch, name: str, work: Path) -> dict:
+    """(d): ``launch.train.main`` on ``name``'s smoke preset for
+    ``MOE_TRAIN_STEPS`` steps on the card: what it printed, its losses,
+    and the leaves that did not move from the seed-0 weights it started
+    from."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+
+    arch = get_arch(name)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        trainer = launch_train.main(
+            ["--arch", name, "--steps", str(MOE_TRAIN_STEPS), "--device",
+             "cuda", "--ckpt-dir", str(work)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    init = launch_train.model_for(
+        arch, arch.smoke()[0], "cuda",
+        torch.Generator(device="cuda").manual_seed(0))
+    model = trainer.params
+    leaves = [k for k, _ in model.named_parameters()]
+    still = [k for (k, a), b in zip(init.named_parameters(),
+                                     model.parameters())
+             if not bool((a != b).any())]
+    return {"printed": buf.getvalue(), "wall_s": wall, "leaves": leaves,
+            "still": still,
+            "losses": [r["loss"] for r in trainer.metrics_log]}
+
+
+def moe_truth(torch, card, batch) -> tuple[float, float, dict]:
+    """The float64 run on the card: ``card`` converted in place (its
+    float32 weights are exact in float64), its compute in float64, the
+    gradients taken in passes of at most ``MOE_TRUTH_PASS_BYTES`` of
+    float64 leaves; returns the loss, the gradient norm and each leaf's
+    gradient in float32 on the host.  ``card`` goes back to float32 (and
+    its config) after."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.train.trainstep import batch_to, named_params
+
+    cfg = card.cfg
+    card.double()
+    card.cfg = dataclasses.replace(cfg, compute_dtype="float64",
+                                   attn_fp32_logits=False)
+    params = named_params(card)
+    passes, size = [[]], 0.0
+    for k, p in params.items():
+        if passes[-1] and size + 8 * p.numel() > MOE_TRUTH_PASS_BYTES:
+            passes.append([])
+            size = 0.0
+        passes[-1].append(k)
+        size += 8 * p.numel()
+    b = batch_to(batch, "cuda")
+    truth, sq = {}, 0.0
+    for names in passes:
+        loss = transformer.loss_fn(card, b)
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    allow_unused=True, materialize_grads=True)
+        for k, g in zip(names, grads):
+            sq += float(torch.linalg.vector_norm(g)) ** 2
+            truth[k] = g.float().cpu()
+        del grads
+    loss = float(loss.detach())
+    card.float()
+    card.cfg = cfg
+    return loss, sq ** 0.5, {"truth": truth, "passes": len(passes)}
+
+
+def moe_digest(torch, g) -> tuple[int, int]:
+    """Two sums of a float32 leaf's bit patterns, plain and weighted by
+    position (int64, wrapping): equal leaves give equal digests, and two
+    runs whose bits differ anywhere (a swap of two elements included) give
+    different ones but by a wrap-around coincidence.  Two gradient sets of
+    21 GB cannot be on the card at once."""
+    bits = g.reshape(-1).view(torch.int32)
+    plain = weighted = 0
+    for lo in range(0, bits.numel(), CHUNK):
+        x = bits[lo:lo + CHUNK].long()
+        i = torch.arange(lo + 1, lo + 1 + x.numel(), device=x.device)
+        plain += int(x.sum())
+        weighted += int((x * i).sum())
+    return plain, weighted
+
+
+def moe_card_vs_cpu(torch, name: str) -> dict:
+    """(b) for one arch at full width and ``MOE_B_LAYERS[name]`` layers:
+    the float64 truth on the card (``moe_truth``), then in float32 and in
+    bfloat16 one run on the CPU and two on the card from the same
+    weights.  Per dtype: the losses (with aux), the gradient norms,
+    whether the two card runs are equal bit for bit (leaf digests,
+    ``moe_digest``), and per leaf the norm-wise gaps card-CPU,
+    card-float64 and CPU-float64 (the largest of each).  The comparisons
+    run on the card, each host tensor crossing once."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.optimizer import global_norm
+
+    arch = get_arch(name)
+    base = dataclasses.replace(arch.config, n_layers=MOE_B_LAYERS[name])
+    batch = TokenStream(vocab=base.vocab, batch=MOE_B_BATCH, seq=MOE_B_SEQ,
+                        seed=0).batch_at(0)
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    card = lm_model(torch, name, base, "cuda", seed=4)
+    cpu = lm_model(torch, name, base, "cpu", state=card.state_dict())
+    l64, gn64, t = moe_truth(torch, card, batch)
+    truth = t.pop("truth")
+    out = {"layers": base.n_layers,
+           "params": sum(p.numel() for p in card.parameters()),
+           "card_bytes_before": held, "host_available_bytes":
+               host_available(),
+           "float64": {"loss": l64, "grad_norm": gn64, **t,
+                       "s": time.perf_counter() - t0}}
+    for dt in ("float32", "bfloat16"):
+        card.cfg = cpu.cfg = dataclasses.replace(base, compute_dtype=dt)
+        t_h = time.perf_counter()
+        l_h, g_h = lm_grads(torch, cpu, batch)
+        gn_h = float(global_norm(g_h))
+        t_c = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        l_c, g_c = lm_grads(torch, card, batch)
+        digests = {k: moe_digest(torch, g) for k, g in g_c.items()}
+        leaves = {k: {} for k in g_c}
+        for k in list(g_h):
+            g, tr = g_h.pop(k).to("cuda"), truth[k].to("cuda")
+            leaves[k].update(card_cpu=lm_rel(torch, g_c[k], g),
+                             card_f64=lm_rel(torch, g_c[k], tr),
+                             cpu_f64=lm_rel(torch, g, tr))
+        del g, tr
+        gn_c = float(global_norm(g_c))
+        del g_c
+        l_c2, g_c2 = lm_grads(torch, card, batch)
+        differ = [k for k, g in g_c2.items()
+                  if moe_digest(torch, g) != digests[k]]
+        del g_c2
+        row = {"loss": [l_c, l_h], "loss_card_again": l_c2,
+               "grad_norm": [gn_c, gn_h],
+               "card_bit_equal": l_c == l_c2 and not differ,
+               "card_leaves_differ": differ,
+               "leaves": leaves, "cpu_grads_s": t_c - t_h,
+               "card_s": time.perf_counter() - t_c,
+               "card_peak_bytes": torch.cuda.max_memory_allocated() - held}
+        row["worst"] = {f: max((v[f], k) for k, v in leaves.items())
+                        for f in ("card_cpu", "card_f64", "cpu_f64")}
+        out[dt] = row
+    del card, cpu, truth
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def moe_check_b(name: str, got: dict) -> None:
+    """(b)'s checks: the two card runs equal bit for bit (the MoE
+    dispatch and combine are deterministic), and the loss, gradient norm
+    and each gradient leaf norm-wise, card against CPU, within
+    ``MOE_*``."""
+    for dt in ("float32", "bfloat16"):
+        row = got[dt]
+        (l_c, l_h), (g_c, g_h) = row["loss"], row["grad_norm"]
+        check(row["card_bit_equal"],
+              f"phase 11 (b) {name} {dt}: two card runs differ: loss "
+              f"{l_c} and {row['loss_card_again']}, leaves "
+              f"{row['card_leaves_differ']}")
+        check(abs(l_c - l_h) <= MOE_LOSS_RTOL[dt] * abs(l_h),
+              f"phase 11 (b) {name} {dt}: loss {l_c} on the card, {l_h} on "
+              f"the CPU")
+        check(abs(g_c - g_h) <= MOE_GNORM_RTOL[dt] * abs(g_h),
+              f"phase 11 (b) {name} {dt}: gradient norm {g_c} on the card, "
+              f"{g_h} on the CPU")
+        for k, v in row["leaves"].items():
+            tol = (MOE_EXPERT_GRAD_RTOL if k.endswith(MOE_EXPERT_LEAVES)
+                   else MOE_GRAD_RTOL)[dt]
+            check(v["card_cpu"] <= tol,
+                  f"phase 11 (b) {name} {dt}: gradient {k} differs from the "
+                  f"CPU's by more than {tol}: {v}")
+
+
+def host_available() -> int:
+    """MemAvailable of the host, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+def moe_phase(torch, card: str):
+    """Phase 11: MoE and MLA at full width on the card.  ``drive``, the
+    launch window's whole content: (a) deepseek-v2-236b at depth 2 (its
+    dense first layer and one MoE layer; MLA with the absorbed decode
+    cache; 5,358,649,344 parameters) and (c) dbrx-132b at depth 2 (GQA, two
+    16-expert MoE layers; 7,751,270,400 parameters), each from seeded
+    weights (``moe_serve``): a 32-token prompt at batch 2 fed token by
+    token through ``decode_step`` against ``forward`` in float32 and in
+    bfloat16 compute, run with capacity_factor = E / k (26.7 and 4) so
+    that no token can be dropped, as the reference's own
+    ``test_mla_decode_matches_forward`` raises it (decode routes B tokens
+    a step, the forward B·S, so at the published capacity they drop
+    different ones); then at the published capacity_factor of 1.25
+    ``decode_32k`` (DeepSeek at its published batch of 128 from a 9.66 GB
+    cache; DBRX at the largest batch that fits), each step timed against
+    its bound (float32 weights plus the cache over 3.35 TB/s) and the
+    dropped share of one more step recorded, DeepSeek's ``long_500k``
+    (batch 1, a 1.21 GB cache) and ``prefill_32k`` cut to the longest
+    multiple of 4096 whose plain attention fits; (d) each arch's smoke
+    preset trained for 3 steps through ``launch.train.main``.
+    ``finish(out, launches)``, after the window: the checks of (a), (c)
+    and (d) (``final step=3`` printed, finite losses, every leaf moved,
+    the router included), the cache bytes a token and layer, and (b)
+    DeepSeek at depth 2 and DBRX at depth 1, batch 2 x 64, card against
+    CPU in float32 and bfloat16 beside a float64 run on the card, and two
+    card runs equal bit for bit.  Returns ``(drive, finish)``."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="moe.", dir=ROOT / "build"))
+    free = shutil.disk_usage(work).free
+    check(free >= MOE_FREE_BYTES,
+          f"phase 11: {free / 1e9:.1f} GB free under {work}")
+
+    def drive():
+        t0 = time.perf_counter()
+        out = {"held_before_phase": held}
+        out["a"] = moe_serve(torch, MOE_A_ARCH, 2, MOE_DECODE_32K[0],
+                             "phase 11 (a)")
+        out["c"] = moe_serve(torch, MOE_C_ARCH, 3, None, "phase 11 (c)")
+        out["d"] = {name: moe_train(torch, name, work)
+                    for name in (MOE_A_ARCH, MOE_C_ARCH)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["drive_s"] = time.perf_counter() - t0
+        return out
+
+    def finish(got: dict, launched: dict) -> dict:
+        t_start = time.perf_counter()
+        info = {"card": card, "launches": launched, **got}
+        for key, name, n in (("a", MOE_A_ARCH, MOE_A_PARAMS),
+                             ("c", MOE_C_ARCH, MOE_C_PARAMS)):
+            row = got[key]
+            check(row["matrix_params"] == row["param_count"] == n,
+                  f"phase 11 ({key}): {name} has {row['matrix_params']} "
+                  f"matrix parameters (param_count {row['param_count']}), "
+                  f"not {n}")
+            for dt, r in row["decode_vs_forward"].items():
+                r["median_position"] = float(np.median(r["per_position"]))
+                check(r["max_abs_of_max"] <= MOE_DECODE_TOL[dt]
+                      and r["median_position"] <= MOE_DECODE_MEDIAN_TOL[dt],
+                      f"phase 11 ({key}): {name} decode differs from "
+                      f"forward in {dt}: {r}")
+            dvf = {dt: (r["max_abs_of_max"], r["median_position"])
+                   for dt, r in row["decode_vs_forward"].items()}
+            log(f"phase 11 ({key}) {card}: {name} at depth {MOE_LAYERS} "
+                f"({row['params']} params): decode against forward {dvf} "
+                f"(largest, median position); "
+                f"decode_32k batch {row['decode_32k']['batch']} "
+                f"{row['decode_32k']['ms_per_step']} ms a step, bound "
+                f"{row['decode_32k']['bound_ms']:.2f} ms, dropped "
+                f"{row['decode_32k']['after']}; "
+                + (f"long_500k {row['long_500k']['ms_per_step']} ms, bound "
+                   f"{row['long_500k']['bound_ms']:.2f} ms; "
+                   if "long_500k" in row else "")
+                + f"prefill {row['prefill_32k']['seq']} tokens "
+                f"{row['prefill_32k']['ms']:.1f} ms; peak above the phase's "
+                f"start {row['peak_bytes']}; wall {row['wall_s']}")
+        cfg = get_arch(MOE_A_ARCH).config
+        info["cache_bytes_a_token_and_layer"] = {
+            "mla": (cfg.kv_lora + cfg.rope_head_dim) * 2,
+            "full_kv": cfg.n_heads * (cfg.nope_head_dim + cfg.rope_head_dim
+                                      + cfg.v_head_dim) * 2}
+        for name, row in got["d"].items():
+            check(f"final step={MOE_TRAIN_STEPS} loss=" in row["printed"],
+                  f"phase 11 (d): {name}: no 'final step="
+                  f"{MOE_TRAIN_STEPS}' line: {row['printed']!r}")
+            check(bool(row["losses"]) and all(np.isfinite(row["losses"])),
+                  f"phase 11 (d): {name}: losses {row['losses']}")
+            check(not row["still"] and any(".moe.router" in k
+                                           for k in row["leaves"]),
+                  f"phase 11 (d): {name}: leaves that did not move: "
+                  f"{row['still']}")
+            log(f"phase 11 (d) {card}: {name} smoke preset trained "
+                f"{MOE_TRAIN_STEPS} steps through launch.train.main in "
+                f"{row['wall_s']:.1f} s, losses {row['losses']}; every "
+                f"leaf moved, routers included")
+        shutil.rmtree(work)
+        info["card_vs_cpu"] = {}
+        for name in MOE_B_LAYERS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            got_b = moe_card_vs_cpu(torch, name)
+            info["card_vs_cpu"][name] = got_b
+            log(f"phase 11 (b) {card}: {name} at depth "
+                f"{got_b['layers']} ({got_b['params']} params): float64 "
+                f"loss {got_b['float64']['loss']} in "
+                f"{got_b['float64']['passes']} passes; " + "; ".join(
+                    f"{dt} loss {got_b[dt]['loss']} grad norm "
+                    f"{got_b[dt]['grad_norm']} card runs bit-equal "
+                    f"{got_b[dt]['card_bit_equal']} worst "
+                    f"{got_b[dt]['worst']} (CPU {got_b[dt]['cpu_grads_s']:.1f}"
+                    f" s, card {got_b[dt]['card_s']:.1f} s, card peak "
+                    f"{got_b[dt]['card_peak_bytes']} B)"
+                    for dt in ("float32", "bfloat16"))
+                + f"; host available {got_b['host_available_bytes']} B; "
+                f"{got_b['seconds']:.1f} s")
+            moe_check_b(name, got_b)
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["finish_s"] = time.perf_counter() - t_start
+        return info
+
+    return drive, finish
+
+
+def held_bytes(torch, label: str) -> dict:
+    """The device memory still allocated (after a collection and with the
+    allocator's cache emptied), logged under ``label``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n = torch.cuda.memory_allocated()
+    log(f"held {n} B {label}")
+    return {"label": label, "bytes": n}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=1000,
@@ -4178,26 +4797,11 @@ def main(argv=None) -> int:
         torch, ops, (g, maps, answers, cpu), served, card), recorder=None)
     compacted()
     del g, maps, answers, cpu, served, compacted
-    inputs = gather_inputs(torch)
-    outs = window("gather", lambda: drive_gather(torch, ops, inputs))
-    t_zoo = time.perf_counter()
-    drive, finish = zoo_phase(torch, ops, ref, card)
-    zoo = finish(window("zoo", drive, recorder=None),
-                 by_path["zoo"]["segment_gather"])
-    zoo["phase_s"] = time.perf_counter() - t_zoo
-    del drive, finish
-    log(f"phase 9: {zoo['phase_s']:.1f} s")
-    t_lm = time.perf_counter()
-    drive, finish = lm_phase(torch, card)
-    lm = finish(window("lm", drive, recorder=None), by_path["lm"])
-    lm["phase_s"] = time.perf_counter() - t_lm
-    del drive, finish
-    log(f"phase 10: {lm['phase_s']:.1f} s")
+    held = [held_bytes(torch, "after phase 7 (the recorded calls held)")]
 
-    table = kernel_table(torch, ops, ref, rec, by_path)
-    table.append(gather_row(torch, ops, ref, inputs, outs, by_path))
-    table[-1]["train_batch"] = zoo["train_batch_call"]
-    del inputs, outs
+    # phase 6: the engine kernels' rows on the recorded calls, then those
+    # calls (and the tensors they hold) go
+    table = kernel_table(torch, ops, ref, rec)
     if args.save_calls is not None:
         args.save_calls.parent.mkdir(parents=True, exist_ok=True)
         torch.save({name: {"largest": rec.calls[name][1:],
@@ -4207,12 +4811,48 @@ def main(argv=None) -> int:
             for p, h in rec.cap_hist.items()}
     log(f"phase 6: expand_filter_compact calls by power-of-two capacity: "
         f"{hist}")
+    rec.calls.clear()  # window's default recorder: kept, but empty
+    rec.smallest.clear()
+    held.append(held_bytes(torch, "after phase 6's engine rows"))
+    inputs = gather_inputs(torch)
+    outs = window("gather", lambda: drive_gather(torch, ops, inputs),
+                  recorder=None)
+    table.append(gather_row(torch, ops, ref, inputs, outs))
+    del inputs, outs
+    held.append(held_bytes(torch, "before phase 9 (after phase 6's "
+                                  "segment_gather row)"))
+    t_zoo = time.perf_counter()
+    drive, finish = zoo_phase(torch, ops, ref, card)
+    zoo = finish(window("zoo", drive, recorder=None),
+                 by_path["zoo"]["segment_gather"])
+    zoo["held_before_phase"] = held[-1]["bytes"]
+    zoo["phase_s"] = time.perf_counter() - t_zoo
+    del drive, finish
+    table[-1]["train_batch"] = zoo["train_batch_call"]
+    log(f"phase 9: {zoo['phase_s']:.1f} s")
+    held.append(held_bytes(torch, "before phase 10"))
+    t_lm = time.perf_counter()
+    drive, finish = lm_phase(torch, card)
+    lm = finish(window("lm", drive, recorder=None), by_path["lm"])
+    lm["phase_s"] = time.perf_counter() - t_lm
+    del drive, finish
+    log(f"phase 10: {lm['phase_s']:.1f} s")
+    held.append(held_bytes(torch, "before phase 11"))
+    t_moe = time.perf_counter()
+    drive, finish = moe_phase(torch, card)
+    moe = finish(window("moe", drive, recorder=None), by_path["moe"])
+    moe["phase_s"] = time.perf_counter() - t_moe
+    del drive, finish
+    log(f"phase 11: {moe['phase_s']:.1f} s")
+    held.append(held_bytes(torch, "after phase 11"))
+
+    fill_launches(table, by_path)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "serve": serve,
-              "sharded": sharded, "zoo": zoo, "lm": lm,
-              "kernels": table,
+              "sharded": sharded, "zoo": zoo, "lm": lm, "moe": moe,
+              "held": held, "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution over the archs the
-port has so far: the dense LMs, DLRM and GCN (the reference registers ten
-plus the engine; DeepSeek-V2, DBRX, PNA, MeshGraphNet and DimeNet come
-with later slices)."""
+port has so far: the dense LMs, the MoE LMs (DeepSeek-V2 with MLA, DBRX),
+DLRM and GCN (the reference registers ten plus the engine; PNA,
+MeshGraphNet and DimeNet come with later slices)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ _ARCH_MODULES = {
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
 }

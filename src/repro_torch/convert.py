@@ -12,10 +12,11 @@ planner.
 The zoo's weights carry across the same way: ``params_from_jax`` turns the
 reference's parameter pytree into the port module's ``state_dict`` and
 ``adam_state_from_jax`` its optimizer state, so one trajectory can be
-resumed in both packages; ``cache_from_jax`` carries an LM's KV cache.
-The reference stacks an LM's layers (``dense_layers.<leaf>`` of shape
-``[L, ...]``); the port holds a module a layer, so those leaves are split
-into ``dense_layers.{i}.<leaf>``.
+resumed in both packages; ``cache_from_jax`` carries an LM's cache (GQA's
+``k`` / ``v`` or MLA's ``ckv`` / ``krope``).  The reference stacks an LM's
+layers (``dense_layers.<leaf>`` and ``moe_layers.<leaf>`` of shape ``[L,
+...]``); the port holds a module a layer, so those leaves are split into
+``dense_layers.{i}.<leaf>`` and ``moe_layers.{i}.<leaf>``.
 """
 
 from __future__ import annotations
@@ -134,20 +135,22 @@ def _named_leaves(tree, prefix: str = "") -> dict:
     return out
 
 
-_STACKED = "dense_layers."
+_STACKED = ("dense_layers.", "moe_layers.")
 
 
 def _unstack(named: dict) -> dict:
-    """``dense_layers.<leaf>`` stacked over the layers -> one entry a
-    layer, ``dense_layers.{i}.<leaf>``; other names as they are."""
+    """``dense_layers.<leaf>`` / ``moe_layers.<leaf>`` stacked over the
+    layers -> one entry a layer, ``dense_layers.{i}.<leaf>`` /
+    ``moe_layers.{i}.<leaf>``; other names as they are."""
     out = {}
     for k, v in named.items():
-        if k.startswith(_STACKED):
-            leaf = k[len(_STACKED):]
-            for i in range(v.shape[0]):
-                out[f"{_STACKED}{i}.{leaf}"] = v[i]
-        else:
+        stack = next((p for p in _STACKED if k.startswith(p)), None)
+        if stack is None:
             out[k] = v
+            continue
+        leaf = k[len(stack):]
+        for i in range(v.shape[0]):
+            out[f"{stack}{i}.{leaf}"] = v[i]
     return out
 
 
@@ -155,8 +158,8 @@ def params_from_jax(arch_name: str, tree) -> dict:
     """The port module's ``state_dict`` from the reference's parameter
     pytree (leaves as numpy arrays): ``{"tables": [...], "bot": {"w":
     [...], "b": [...]}, "top": ...}`` for DLRM, ``{"w": [...]}`` for GCN,
-    ``{"embed", "final_ln", "lm_head", "dense_layers": {...}}`` (layers
-    stacked) for an LM."""
+    ``{"embed", "final_ln", "lm_head", "dense_layers": {...},
+    "moe_layers": {...}}`` (layers stacked) for an LM."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -185,9 +188,10 @@ def adam_state_from_jax(state):
 
 
 def cache_from_jax(cache) -> dict:
-    """The port's LM KV cache (``transformer.init_cache``'s layout) from
-    the reference's (leaves as numpy arrays; bfloat16 arrives as
-    ``ml_dtypes.bfloat16`` and is carried bit for bit)."""
+    """The port's LM cache (``transformer.init_cache``'s layout: ``k`` /
+    ``v`` or ``ckv`` / ``krope``, and ``pos``) from the reference's
+    (leaves as numpy arrays; bfloat16 arrives as ``ml_dtypes.bfloat16``
+    and is carried bit for bit)."""
     import torch
 
     def tensor(a):
@@ -197,5 +201,5 @@ def cache_from_jax(cache) -> dict:
                 torch.bfloat16)
         return torch.from_numpy(a.copy())
 
-    return {"k": tensor(cache["k"]), "v": tensor(cache["v"]),
-            "pos": tensor(np.asarray(cache["pos"], np.int32))}
+    return {k: tensor(np.asarray(v, np.int32) if k == "pos" else v)
+            for k, v in cache.items()}

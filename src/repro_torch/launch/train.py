@@ -5,11 +5,14 @@ Builds the arch's model (reduced or full) on ``--device`` (default
 plain versions) from a ``torch.Generator`` seeded by ``--seed``, the data
 stream and the train step, and runs the fault-tolerant loop with
 checkpointing.  The ported archs are the dense LMs (``qwen2-1.5b``,
-``qwen3-8b``, ``minitron-8b``), ``dlrm-rm2`` and ``gcn-cora``:
+``qwen3-8b``, ``minitron-8b``), the MoE LMs (``deepseek-v2-236b``, MLA
+and MoE; ``dbrx-132b``), ``dlrm-rm2`` and ``gcn-cora``:
 
     python -m repro_torch.launch.train --arch dlrm-rm2 --device cpu --steps 5
     python -m repro_torch.launch.train --arch dlrm-rm2 --preset full --batch 65536
     python -m repro_torch.launch.train --arch qwen3-8b --device cpu --steps 3
+    python -m repro_torch.launch.train --arch deepseek-v2-236b --device cpu \
+        --steps 3
     python -m repro_torch.launch.train --arch qwen2-1.5b --preset full \
         --batch 4 --seq 4096 --microbatches 2
 

@@ -1,4 +1,4 @@
-"""Shared neural-net layers of the port (DLRM, GCN and the dense LM).
+"""Shared neural-net layers of the port (DLRM, GCN and the LMs).
 
 Conventions, as in the reference's ``models/layers.py``:
   - weights are ``[in, out]`` and applied as ``x @ w`` (so carrying a

@@ -1,14 +1,18 @@
-"""Decoder-only LM of the port: the dense GQA stack (Qwen2, Qwen3,
-Minitron), a training forward with full causal attention and a decode
-step against a preallocated KV cache.
+"""Decoder-only LM of the port: dense GQA (Qwen2, Qwen3, Minitron), MLA
+(DeepSeek-V2) and MoE layers (DeepSeek-V2, DBRX), a training forward with
+full causal attention and a decode step against a preallocated KV cache;
+MLA decodes in the *absorbed* form (the cache holds the compressed
+``c_kv`` and the shared RoPE key, 576 values a token and layer at
+DeepSeek-V2's widths).
 
-``TransformerLM`` holds one module a layer (``dense_layers.{i}``), where
-the reference stacks each leaf over the layers and scans them: a stacked
-``Parameter`` would have autograd build a gradient of the whole stack for
-every layer's slice.  ``convert.params_from_jax`` splits the reference's
-stacks.  The layer loop is a Python loop, so ``LMConfig.unroll_layers``
-changes nothing here, and ``act_spec`` / ``logits_spec`` (sharding hints)
-are kept in the config but have no effect until sharding is ported.
+``TransformerLM`` holds one module a layer (``dense_layers.{i}``, then
+``moe_layers.{i}``), where the reference stacks each leaf over the layers
+and scans them: a stacked ``Parameter`` would have autograd build a
+gradient of the whole stack for every layer's slice.
+``convert.params_from_jax`` splits the reference's stacks.  The layer
+loop is a Python loop, so ``LMConfig.unroll_layers`` changes nothing
+here, and ``act_spec`` / ``logits_spec`` (sharding hints) are kept in the
+config but have no effect until sharding is ported.
 
 Numerics follow the reference's functions term for term: the attention
 logits are bf16 products summed in float32 (``preferred_element_type``),
@@ -17,8 +21,12 @@ is written out (max and sum in float32, ``exp`` in the accumulation
 dtype); the embedding is cast to the compute dtype before it is gathered,
 so a repeated token's gradient accumulates in that dtype.
 
-MLA attention (DeepSeek-V2), MoE layers and ``remat_policy="dots"`` are
-not ported yet: they raise ``NotImplementedError``.
+MLA's full attention runs through the same ``_gqa`` (one KV head a query
+head, the RoPE key broadcast over the heads); its absorbed decode keeps
+the reference's own numerics (two logits products each rounded to the
+compute dtype and added in it, a -1e30 mask, a float32 softmax).
+``remat_policy="dots"`` is not ported yet: it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
                                        dense_init, embed_init, rmsnorm,
                                        rope_angles, swiglu)
+from repro_torch.models.moe import MoE, MoEConfig, moe_apply
 
 
 @dataclass(frozen=True)
@@ -48,7 +57,7 @@ class LMConfig:
     vocab: int
     qk_norm: bool = False
     qkv_bias: bool = False
-    attn: str = "gqa"  # "gqa" | "mla" (not ported)
+    attn: str = "gqa"  # "gqa" | "mla"
     # MLA geometry (DeepSeek-V2)
     q_lora: int = 0
     kv_lora: int = 512
@@ -56,7 +65,7 @@ class LMConfig:
     nope_head_dim: int = 128
     v_head_dim: int = 128
     rope_theta: float = 1e4
-    moe: Any = None  # the reference's MoEConfig (not ported)
+    moe: MoEConfig | None = None
     remat: bool = True
     # remat policy: "full" (recompute each layer in the backward) or
     # "dots" (save matmul outputs; not ported)
@@ -112,18 +121,10 @@ class LMConfig:
 def check_ported(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not have yet,
     naming the ROADMAP item that brings it."""
-    if cfg.attn == "mla":
-        raise NotImplementedError(
-            "MLA attention (DeepSeek-V2) is not ported yet: ROADMAP Queue 1 "
-            "item 6.2 (MoE and MLA)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE layers are not ported yet: ROADMAP Queue 1 item 6.2 (MoE "
-            "and MLA)")
     if cfg.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy='dots' is not ported yet: it comes with sharding "
-            "and the dry run, ROADMAP Queue 1 item 6.4")
+            "and the dry run, ROADMAP Queue 1 item 3")
 
 
 # --------------------------------------------------------------------------
@@ -166,22 +167,62 @@ class SwiGLU(nn.Module):
         self.w_down = nn.Parameter(dense_init(cfg.d_ff, cfg.d_model, **kw))
 
 
-class Layer(nn.Module):
+class MLAAttention(nn.Module):
+    """Multi-head latent attention (DeepSeek-V2), all ``[in, out]``:
+    ``w_dq [d, q_lora]``, ``q_ln``, ``w_uq [q_lora, H·(dn + dr)]``,
+    ``w_dkv [d, kv_lora]``, ``kv_ln``, ``w_uk [kv_lora, H·dn]``, ``w_uv
+    [kv_lora, H·dv]``, ``w_kr [d, dr]`` (the RoPE key shared by the heads)
+    and ``wo [H·dv, d]``."""
+
     def __init__(self, cfg: LMConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qk = cfg.nope_head_dim + cfg.rope_head_dim
+        kw = dict(generator=generator, device=device)
+
+        def ones(n):
+            return nn.Parameter(torch.ones(n, dtype=torch.float32,
+                                           device=device))
+
+        self.w_dq = nn.Parameter(dense_init(d, cfg.q_lora, **kw))
+        self.q_ln = ones(cfg.q_lora)
+        self.w_uq = nn.Parameter(dense_init(cfg.q_lora, h * qk, **kw))
+        self.w_dkv = nn.Parameter(dense_init(d, cfg.kv_lora, **kw))
+        self.kv_ln = ones(cfg.kv_lora)
+        self.w_uk = nn.Parameter(dense_init(cfg.kv_lora,
+                                            h * cfg.nope_head_dim, **kw))
+        self.w_uv = nn.Parameter(dense_init(cfg.kv_lora,
+                                            h * cfg.v_head_dim, **kw))
+        self.w_kr = nn.Parameter(dense_init(d, cfg.rope_head_dim, **kw))
+        self.wo = nn.Parameter(dense_init(h * cfg.v_head_dim, d, **kw))
+
+
+class Layer(nn.Module):
+    """``ln1``, ``ln2``, ``attn`` (GQA or MLA), then ``mlp`` (SwiGLU) or,
+    with ``use_moe``, ``moe``."""
+
+    def __init__(self, cfg: LMConfig, use_moe: bool = False, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
         self.ln1 = nn.Parameter(
             torch.ones(cfg.d_model, dtype=torch.float32, device=device))
         self.ln2 = nn.Parameter(
             torch.ones(cfg.d_model, dtype=torch.float32, device=device))
-        self.attn = Attention(cfg, device=device, generator=generator)
-        self.mlp = SwiGLU(cfg, device=device, generator=generator)
+        self.attn = (MLAAttention if cfg.attn == "mla" else Attention)(
+            cfg, **kw)
+        if use_moe:
+            self.moe = MoE(cfg.d_model, cfg.moe, **kw)
+        else:
+            self.mlp = SwiGLU(cfg, **kw)
 
 
 class TransformerLM(nn.Module):
-    """The dense LM: ``embed [V, d]``, ``dense_layers.{i}`` (``ln1``,
-    ``ln2``, ``attn.*``, ``mlp.*``), ``final_ln``, ``lm_head [d, V]``
-    (untied), float32 master weights drawn from ``generator``."""
+    """The LM: ``embed [V, d]``, ``dense_layers.{i}``, then (with ``moe``)
+    ``moe_layers.{i}`` (``ln1``, ``ln2``, ``attn.*``, ``mlp.*`` or
+    ``moe.*``), ``final_ln``, ``lm_head [d, V]`` (untied), float32 master
+    weights drawn from ``generator``."""
 
     def __init__(self, cfg: LMConfig, *, device=None,
                  generator: torch.Generator | None = None):
@@ -193,8 +234,16 @@ class TransformerLM(nn.Module):
         self.final_ln = nn.Parameter(
             torch.ones(cfg.d_model, dtype=torch.float32, device=device))
         self.lm_head = nn.Parameter(dense_init(cfg.d_model, cfg.vocab, **kw))
+        # with moe, the first first_dense_layers layers are dense
+        nd = cfg.n_layers if cfg.moe is None else cfg.moe.first_dense_layers
         self.dense_layers = nn.ModuleList(
-            Layer(cfg, **kw) for _ in range(cfg.n_layers))
+            Layer(cfg, **kw) for _ in range(nd))
+        self.moe_layers = nn.ModuleList(
+            Layer(cfg, use_moe=True, **kw) for _ in range(cfg.n_layers - nd))
+
+    def layers(self) -> list[Layer]:
+        """Every layer in order (the cache's layer index)."""
+        return [*self.dense_layers, *self.moe_layers]
 
     def forward(self, tokens: torch.Tensor):
         return forward(self, tokens)
@@ -225,8 +274,10 @@ def _project(x, attn: Attention, cfg: LMConfig, sin, cos):
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
-def _attention_full(x, attn: Attention, cfg: LMConfig, sin, cos):
+def _attention_full(x, attn, cfg: LMConfig, sin, cos):
     b, s, _ = x.shape
+    if cfg.attn == "mla":
+        return _mla_full(x, attn, cfg, sin, cos)
     q, k, v = _project(x, attn, cfg, sin, cos)
     out = _gqa(q, k, v, causal=True, fp32_logits=cfg.attn_fp32_logits)
     return out.reshape(b, s, -1) @ attn.wo.to(x.dtype)
@@ -276,6 +327,42 @@ def _gqa(q, k, v, causal: bool = True, q_offset: int = 0, kv_len=None,
         b, s, hq, dv)
 
 
+def _mla_queries(x, attn: MLAAttention, cfg: LMConfig, sin, cos):
+    """q_nope [B, S, H, dn] and q_rope [B, S, H, dr] (RoPE applied)."""
+    b, s, _ = x.shape
+    dn = cfg.nope_head_dim
+    cq = rmsnorm(x @ attn.w_dq.to(x.dtype), attn.q_ln)
+    q = (cq @ attn.w_uq.to(x.dtype)).reshape(
+        b, s, cfg.n_heads, dn + cfg.rope_head_dim)
+    return q[..., :dn], apply_rope(q[..., dn:], sin, cos)
+
+
+def _mla_latent(x, attn: MLAAttention, cfg: LMConfig, sin, cos):
+    """The cache's two entries of ``x``: c_kv [B, S, kv_lora] (normed) and
+    the shared RoPE key [B, S, dr]."""
+    b, s, _ = x.shape
+    ckv = rmsnorm(x @ attn.w_dkv.to(x.dtype), attn.kv_ln)
+    kr = (x @ attn.w_kr.to(x.dtype)).reshape(b, s, 1, cfg.rope_head_dim)
+    return ckv, apply_rope(kr, sin, cos).reshape(b, s, cfg.rope_head_dim)
+
+
+def _mla_full(x, attn: MLAAttention, cfg: LMConfig, sin, cos):
+    """MLA's training / prefill attention: keys and values expanded from
+    c_kv a head, the RoPE key broadcast over the heads, then ``_gqa`` with
+    one KV head a query head (scale 1/√(dn + dr))."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_queries(x, attn, cfg, sin, cos)
+    ckv, k_rope = _mla_latent(x, attn, cfg, sin, cos)
+    k_nope = (ckv @ attn.w_uk.to(x.dtype)).reshape(b, s, h, dn)
+    v = (ckv @ attn.w_uv.to(x.dtype)).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, dr)], dim=-1)
+    out = _gqa(q, k, v, causal=True, fp32_logits=cfg.attn_fp32_logits)
+    return out.reshape(b, s, h * dv) @ attn.wo.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # forward / loss
 # --------------------------------------------------------------------------
@@ -285,21 +372,38 @@ def _ffn(h, mlp: SwiGLU):
     return swiglu(h, mlp.w_gate, mlp.w_up, mlp.w_down)
 
 
+def _mix(h, layer: Layer, cfg: LMConfig):
+    """The layer's feed-forward on h [B, S, d]: (y, aux), the MoE over the
+    B·S tokens, or the SwiGLU with a float32 zero aux."""
+    if hasattr(layer, "moe"):
+        b, s, d = h.shape
+        y, aux = moe_apply(layer.moe, h.reshape(b * s, d), cfg.moe)
+        return y.reshape(b, s, d), aux
+    return _ffn(h, layer.mlp), torch.zeros((), dtype=torch.float32,
+                                           device=h.device)
+
+
 def _layer_fwd(x, layer: Layer, cfg: LMConfig, sin, cos):
     x = x + _attention_full(rmsnorm(x, layer.ln1), layer.attn, cfg, sin, cos)
-    return x + _ffn(rmsnorm(x, layer.ln2), layer.mlp)
+    y, aux = _mix(rmsnorm(x, layer.ln2), layer, cfg)
+    return x + y, aux
 
 
 def _rope(positions, cfg: LMConfig):
-    sin, cos = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    """sin, cos [1, S, 1, D/2] at the RoPE width: ``rope_head_dim`` for
+    MLA (only the RoPE part of a head rotates), ``d_head`` otherwise."""
+    dim = cfg.rope_head_dim if cfg.attn == "mla" else cfg.d_head
+    sin, cos = rope_angles(positions, dim, cfg.rope_theta)
     return sin[None, :, None, :], cos[None, :, None, :]
 
 
 def forward(model: TransformerLM, tokens: torch.Tensor):
     """tokens int [B, S] -> (logits [B, S, V] in the compute dtype, aux
-    loss: a float32 zero, as the dense reference's).  With ``cfg.remat``
-    and gradients enabled each layer is recomputed in the backward
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    loss: float32, the sum of the MoE layers' load-balance terms, zero
+    without MoE).  With ``cfg.remat`` and gradients enabled each layer is
+    recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``; the MoE dispatch is deterministic, so
+    the recompute routes as the first forward did)."""
     cfg = model.cfg
     _, s = tokens.shape
     # cast, then gather: a repeated token's gradient accumulates in the
@@ -308,15 +412,17 @@ def forward(model: TransformerLM, tokens: torch.Tensor):
     sin, cos = _rope(torch.arange(s, dtype=torch.int32, device=x.device),
                      cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    for layer in model.dense_layers:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in model.layers():
         if remat:
-            x = checkpoint(_layer_fwd, x, layer, cfg, sin, cos,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer_fwd, x, layer, cfg, sin, cos,
+                              use_reentrant=False)
         else:
-            x = _layer_fwd(x, layer, cfg, sin, cos)
+            x, a = _layer_fwd(x, layer, cfg, sin, cos)
+        aux = aux + a
     x = rmsnorm(x, model.final_ln)
     logits = x @ model.lm_head.to(x.dtype)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(model: TransformerLM, batch: dict) -> torch.Tensor:
@@ -330,30 +436,80 @@ def loss_fn(model: TransformerLM, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
-    """Preallocated KV cache, layer-stacked as the reference's: ``k`` and
-    ``v`` ``[L, B, max_len, Hkv, D]`` in the compute dtype, ``pos`` an
+    """Preallocated cache, layer-stacked as the reference's (the dense
+    layers first, then the MoE layers), in the compute dtype: GQA's ``k``
+    and ``v`` ``[L, B, max_len, Hkv, D]``; MLA's ``ckv [L, B, max_len,
+    kv_lora]`` and ``krope [L, B, max_len, rope_head_dim]``; ``pos`` an
     int32 scalar (the next position to write)."""
     check_ported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.attn == "mla":
+        shapes = {"ckv": lead + (cfg.kv_lora,),
+                  "krope": lead + (cfg.rope_head_dim,)}
+    else:
+        shapes = {n: lead + (cfg.n_kv_heads, cfg.d_head) for n in ("k", "v")}
+    cache = {n: torch.zeros(sh, dtype=cfg.dtype, device=device)
+             for n, sh in shapes.items()}
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
+
+
+def _write(cache_layer, new, pos: int):
+    """Writes ``new [B, s, ...]`` into a layer's cache slice in place at
+    ``pos``, clamped so that the ``s`` entries fit (as
+    ``dynamic_update_slice`` clamps)."""
+    s = new.shape[1]
+    start = max(0, min(pos, cache_layer.shape[1] - s))
+    cache_layer[:, start:start + s] = new
 
 
 def _gqa_decode(x, attn: Attention, cfg: LMConfig, cache_k, cache_v,
                 pos: int, sin, cos):
     """Writes the step's k and v into the layer's cache slices in place at
-    ``pos`` (clamped so that the ``s`` new entries fit, as
-    ``dynamic_update_slice`` clamps), then attends over the whole cache
-    with the first ``pos + s`` entries valid and no causal mask."""
+    ``pos`` (``_write``), then attends over the whole cache with the first
+    ``pos + s`` entries valid and no causal mask."""
     b, s, _ = x.shape
     q, k, v = _project(x, attn, cfg, sin, cos)
-    start = max(0, min(pos, cache_k.shape[1] - s))
-    cache_k[:, start:start + s] = k
-    cache_v[:, start:start + s] = v
+    _write(cache_k, k, pos)
+    _write(cache_v, v, pos)
     out = _gqa(q, cache_k, cache_v, causal=False, kv_len=pos + s,
                fp32_logits=cfg.attn_fp32_logits)
     return out.reshape(b, s, -1) @ attn.wo.to(x.dtype)
+
+
+def _mla_decode(x, attn: MLAAttention, cfg: LMConfig, cache_ckv, cache_kr,
+                pos: int, sin, cos):
+    """Absorbed MLA decode: attention runs in the compressed c_kv space.
+    The step's c_kv and RoPE key are written into the layer's cache in
+    place at ``pos`` (``_write``); ``W_uk`` is absorbed into the query
+    (``q_abs = q_nope · W_uk``) and ``W_uv`` applied after the context.
+    As the reference: the logits ``q_abs·c_kv + q_rope·k_rope`` are two
+    products each rounded to the compute dtype and added in it, then made
+    float32 and divided by √(dn + dr); entries at ``pos + s`` and past are
+    masked with -1e30 (no causal mask inside a chunk); the softmax is
+    float32, its probabilities cast to the compute dtype."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    c = cfg.kv_lora
+    q_nope, q_rope = _mla_queries(x, attn, cfg, sin, cos)
+    ckv_new, kr_new = _mla_latent(x, attn, cfg, sin, cos)
+    _write(cache_ckv, ckv_new, pos)
+    _write(cache_kr, kr_new, pos)
+    w_uk = attn.w_uk.to(x.dtype).reshape(c, h, dn)
+    q_abs = torch.einsum("bshn,chn->bshc", q_nope, w_uk)
+    logits = (torch.einsum("bshc,btc->bhst", q_abs, cache_ckv)
+              + torch.einsum("bshr,btr->bhst", q_rope, cache_kr))
+    logits = logits.float() / math.sqrt(dn + dr)
+    t = cache_ckv.shape[1]
+    valid = torch.arange(t, device=x.device) < pos + s
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    del logits
+    ctx = torch.einsum("bhst,btc->bshc", probs, cache_ckv)
+    w_uv = attn.w_uv.to(x.dtype).reshape(c, h, dv)
+    ctx = torch.einsum("bshc,chv->bshv", ctx, w_uv)
+    return ctx.reshape(b, s, h * dv) @ attn.wo.to(x.dtype)
 
 
 @torch.no_grad()
@@ -362,7 +518,9 @@ def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor):
     cache).  The cache is updated in place and returned (``pos`` advanced
     by ``S_new``): a functional copy would double a cache of tens of GB.
     A chunk of ``S_new > 1`` tokens attends to all of its own tokens, later
-    ones included, as the reference's does (``causal=False``)."""
+    ones included, as the reference's does (``causal=False``).  An MoE
+    layer routes the step's B·S_new tokens together, so its capacity is
+    that of B·S_new tokens, as the reference's."""
     cfg = model.cfg
     _, s = tokens.shape
     pos = int(cache["pos"])
@@ -371,10 +529,13 @@ def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor):
     x = model.embed[tokens.long()].to(cfg.dtype)
     sin, cos = _rope(pos + torch.arange(s, dtype=torch.int32,
                                         device=x.device), cfg)
-    for i, layer in enumerate(model.dense_layers):
-        x = x + _gqa_decode(rmsnorm(x, layer.ln1), layer.attn, cfg,
-                            cache["k"][i], cache["v"][i], pos, sin, cos)
-        x = x + _ffn(rmsnorm(x, layer.ln2), layer.mlp)
+    mla = cfg.attn == "mla"
+    attend, c1, c2 = ((_mla_decode, "ckv", "krope") if mla
+                      else (_gqa_decode, "k", "v"))
+    for i, layer in enumerate(model.layers()):
+        x = x + attend(rmsnorm(x, layer.ln1), layer.attn, cfg, cache[c1][i],
+                       cache[c2][i], pos, sin, cos)
+        x = x + _mix(rmsnorm(x, layer.ln2), layer, cfg)[0]
     x = rmsnorm(x, model.final_ln)
     logits = x @ model.lm_head.to(x.dtype)
     cache["pos"] = cache["pos"] + s

@@ -1090,14 +1090,15 @@ def _lm_smoke_run(name: str, dtype: str, device, state: dict | None):
     cache = transformer.init_cache(cfg, 2, 20, device=device)
     dec = [transformer.decode_step(model, cache, b["tokens"][:, t:t + 1])[0]
            for t in range(16)]
-    return {"logits": logits.detach().float().cpu(),
-            "loss": float(loss.detach()),
-            "grads": {k: g.float().cpu() for k, g in zip(params, grads)},
-            "decode": torch.cat(dec, 1).float().cpu(),
-            "cache_k": cache["k"].float().cpu(),
-            "cache_v": cache["v"].float().cpu(),
-            "state": {k: v.detach().cpu() for k, v in
-                      model.state_dict().items()}}
+    out = {"logits": logits.detach().float().cpu(),
+           "loss": float(loss.detach()),
+           "grads": {k: g.float().cpu() for k, g in zip(params, grads)},
+           "decode": torch.cat(dec, 1).float().cpu(),
+           "state": {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}}
+    out.update({f"cache_{k}": v.float().cpu() for k, v in cache.items()
+                if k != "pos"})
+    return out
 
 
 def _rel(a, b) -> float:
@@ -1106,13 +1107,17 @@ def _rel(a, b) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-8b", "minitron-8b"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-8b", "minitron-8b",
+                                  "deepseek-v2-236b", "dbrx-132b"])
 def test_cuda_lm_smoke_forward_grads_decode_match_cpu(cuda, name, dtype):
+    """Forward, loss, gradients, decode and the cache (GQA's k / v, MLA's
+    ckv / krope), card against CPU; the MoE archs route on both."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cpu32 = _lm_smoke_run(name, "float32", "cpu", None)
     cpu = _lm_smoke_run(name, dtype, "cpu", cpu32["state"])
     gpu = _lm_smoke_run(name, dtype, cuda, cpu32["state"])
-    values = ("logits", "decode", "cache_k", "cache_v")
+    values = ("logits", "decode",
+              *(k for k in cpu if k.startswith("cache_")))
     if dtype == "float32":
         for k in values:
             want = cpu[k]
@@ -1132,3 +1137,91 @@ def test_cuda_lm_smoke_forward_grads_decode_match_cpu(cuda, name, dtype):
         cpu_err = float((cpu["grads"][k] - truth).norm())
         assert float((gpu["grads"][k] - truth).norm()) <= \
             LM_SMOKE_BF16_GRAD * cpu_err, k
+
+
+# moe_apply at smoke width (d_model 64, 4 experts top-2, d_ff 32, one
+# shared expert) on 64 tokens: (capacity_factor, router) with no drops,
+# with drops, and every token forced onto experts 0 and 1 (capacity 2 at
+# 8 tokens, no shared expert)
+MOE_CUDA_CASES = {"no_drops": (100.0, None, 64, 1),
+                  "drops": (0.5, None, 64, 1),
+                  "forced": (0.5, "forced", 8, 0)}
+
+
+def _moe_run(case: str, dtype, device, seed: int = 0):
+    """y, aux and the gradients of sum(y · cot) + aux (x and every
+    weight), all on the host."""
+    from repro_torch.models import moe
+
+    cf, router, t, shared = MOE_CUDA_CASES[case]
+    cfg = moe.MoEConfig(n_experts=4, top_k=2, d_ff_expert=32,
+                        n_shared=shared, capacity_factor=cf)
+    gen = torch.Generator().manual_seed(seed)
+    block = moe.MoE(64, cfg, generator=gen)
+    x = torch.randn((t, 64), generator=gen)
+    cot = torch.randn((t, 64), generator=gen)
+    if router == "forced":
+        x[:, 0] = 1.0
+        with torch.no_grad():
+            block.router.zero_()
+            block.router[0, :2] = torch.tensor([2.0, 1.0])
+    block.to(device)
+    xd = x.to(device).requires_grad_(True)
+    y, aux = moe.moe_apply(block, xd.to(dtype), cfg)
+    params = dict(block.named_parameters())
+    grads = torch.autograd.grad(
+        torch.sum(y.float() * cot.to(device)) + aux, [xd, *params.values()])
+    return {"y": y.detach().float().cpu(), "aux": float(aux.detach()),
+            "grads": {k: g.cpu() for k, g in zip(["x", *params], grads)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(MOE_CUDA_CASES))
+def test_cuda_moe_apply_matches_cpu(cuda, case, dtype):
+    """Card against CPU: float32 within 1e-5 (values and each gradient
+    leaf norm-wise), bfloat16 within LM_SMOKE_BF16 norm-wise; in the
+    forced case each expert keeps only token 0, so every other token's
+    output and gradient through the experts is exactly 0 on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    cpu = _moe_run(case, dt, "cpu")
+    gpu = _moe_run(case, dt, cuda)
+    tol = LM_SMOKE_F32 if dtype == "float32" else LM_SMOKE_BF16
+    assert _rel(gpu["y"], cpu["y"]) <= tol
+    assert gpu["aux"] == pytest.approx(cpu["aux"], rel=1e-5)
+    for k, want in cpu["grads"].items():
+        assert _rel(gpu["grads"][k].float(), want.float()) <= tol, k
+    if case == "forced":
+        assert bool((gpu["y"][1:] == 0).all())
+        assert float(gpu["y"][0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_moe_apply_repeats_bits(cuda):
+    """Two card runs of moe_apply and its backward are equal bit for bit
+    (the dispatch and combine use no atomics and no scatter with repeated
+    indices), at 4096 tokens, 16 experts top-4, with drops."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(n_experts=16, top_k=4, d_ff_expert=256, n_shared=1,
+                        capacity_factor=1.0)
+    gen = torch.Generator().manual_seed(5)
+    block = moe.MoE(512, cfg, generator=gen).to(cuda)
+    x = torch.randn((4096, 512), generator=gen).to(cuda)
+    cot = torch.randn((4096, 512), generator=gen).to(cuda)
+    runs = []
+    for dt in (torch.float32, torch.bfloat16) * 2:
+        xd = x.clone().requires_grad_(True)
+        y, aux = moe.moe_apply(block, xd.to(dt), cfg)
+        grads = torch.autograd.grad(torch.sum(y.float() * cot) + aux,
+                                    [xd, *block.parameters()])
+        runs.append((y.detach(), aux.detach(), grads))
+    _, top_i, _ = moe.route(x, block.router, cfg)  # some tokens dropped
+    assert int(torch.bincount(top_i.reshape(-1)).max()) > \
+        moe.capacity(4096, cfg)
+    for first, again in ((runs[0], runs[2]), (runs[1], runs[3])):
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+        for a, b in zip(first[2], again[2]):
+            assert torch.equal(a, b)
