@@ -220,9 +220,34 @@ Phases, each fatal on failure (no phase's error is caught):
    card taken in passes (DeepSeek's float64 weights and gradients at once
    would take 86 GB).  Cuts: depth ((a), (c) 2; (b) 2 and 1), DBRX's
    ``decode_32k`` batch and both prefill lengths, each for the reason
-   given; widths are the published ones.
+   given; widths are the published ones;
+12. gnn (after phase 11): (a) ``repro_torch.launch.train.main`` trains
+   PNA at its published widths (4 layers, hidden 75, 4 aggregators × 3
+   scalers, d_feat 1433, 16 classes; 667,666 parameters) for 20 steps on
+   the sampled stream on the card, every loss finite, and the first three
+   steps of the same schedule run twice on the CPU from the seed's
+   weights, the card's losses there within 1e-4 (the later steps are
+   chaotic: ``GNN_A_*``); (b) PNA,
+   MeshGraphNet (15 layers, hidden 128, LayerNorm MLPs) and DimeNet (6
+   blocks, hidden 128, 8 bilinear, 7 × 6 basis) at their published widths
+   on the ``GNN_SHAPES`` cells whose step fits one card (``minibatch_lg``
+   for all three, ``molecule`` for MeshGraphNet and DimeNet,
+   ``full_graph_sm`` for PNA and MeshGraphNet), a batch drawn from a seed
+   at the cell's shapes (DimeNet's ``t = 8e`` triplets): one step on the
+   card split into H2D, forward, backward and AdamW (CUDA events; then
+   five warm passes of each, their median and range), its peak memory,
+   the same step on
+   the CPU from the same weights and a float64 run on the card: the loss,
+   the gradient norm, each gradient leaf norm-wise and the AdamW step
+   within ``GNN_TOL`` / ``GNN_ADAM_RTOL`` (at DimeNet's ``minibatch_lg``,
+   whose CPU step took 70 s, the card against the float64 run: cut on the
+   CPU side only, ``GNN_CARD_ONLY``), the card's own spread (a second
+   run: its scatter-adds are float atomics) beside them; (c)
+   ``ogb_products``: each
+   arch's cut, a tensor its step must form against the card's free
+   memory.
 
-The run drives eight paths, each in its own launch-counting window: the
+The run drives ten paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
 closes), the sharded path (phase 8's ``run_sharded`` and
@@ -241,8 +266,11 @@ model build and final checkpoint; the reference's LM reaches no Pallas
 kernel, so this window expects none of the seven), and the moe path
 (phase 11 (a), (c) and (d): the forward and decode calls and the smoke
 presets' training; the reference's MoE and MLA are plain ``jnp`` too, so
-none of the seven).  The device memory still allocated before phases
-9, 10 and 11 is logged and recorded (``held`` and each phase's
+none of the seven), and the gnn path (phase 12 (a) and (b)'s card
+steps; the reference's PNA, MeshGraphNet and DimeNet aggregate with
+``jax.ops.segment_*`` outside any Pallas kernel, so none of the seven).
+The device memory still allocated before phases 9-12 is logged and
+recorded (``held`` and each phase's
 ``held_before_phase``).  The
 kernels' launch counters are set to 0 just before a window and read just
 after it; a kernel of a path launched no time in that path's window fails
@@ -339,6 +367,9 @@ PATH_KERNELS = {
     # phase 11: the reference's MoE and MLA are plain jnp too (einsums,
     # argsort, searchsorted, scatters), so none of the seven
     "moe": (),
+    # phase 12: PNA, MeshGraphNet and DimeNet aggregate with
+    # jax.ops.segment_* outside any Pallas kernel: none of the seven
+    "gnn": (),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -4693,6 +4724,435 @@ def moe_phase(torch, card: str):
     return drive, finish
 
 
+# ------------------------------------------------------------ phase 12: gnn
+
+# (a): PNA at its published widths (4 layers, hidden 75, d_feat 1433, 16
+# classes) through launch.train.main on the sampled stream, card and CPU
+# from the weights of one seed
+GNN_A_ARCH = "pna"
+GNN_A_STEPS = 20
+# (b): each arch at its published widths on the GNN_SHAPES cells whose
+# training step fits one card; ogb_products fits none ((c))
+GNN_B_CELLS = (("pna", "minibatch_lg"), ("pna", "full_graph_sm"),
+               ("meshgraphnet", "minibatch_lg"), ("meshgraphnet", "molecule"),
+               ("meshgraphnet", "full_graph_sm"),
+               ("dimenet", "minibatch_lg"), ("dimenet", "molecule"))
+GNN_SEED = 7
+# (a)'s check, from the first chip runs of this phase (H100, PERF.md §6).
+# The stream's labels are random, so the loss only wanders near ln 16
+# (within about 1.5% over 20 steps), and each step's AdamW update is
+# close to lr·sign(g): an element whose gradient two runs round apart
+# near 0 moves up to 2·lr apart, and float32 rounding (1e-7 at step 2)
+# grows about tenfold a step.  The card lay 8.7e-8-9.9e-6 from the CPU
+# over the first three steps and up to 1.0e-2 over all 20, where any
+# model with near-uniform logits would pass.  So the CPU runs the first
+# GNN_A_HELD steps of the same 20-step schedule (twice: its own spread),
+# and the card's losses there are held within 1e-4 of them, where a wrong
+# gradient or update shows (step 1's update moves the loss by about
+# 1e-3); the card's later steps only have to be finite
+GNN_A_HELD = 3
+GNN_A_RTOL = 1e-4
+# (b)'s tolerances, card against CPU, an arch's from the first chip run
+# of this phase (H100, PERF.md §6), as phases 10 (b) and 11 (b) set
+# theirs: each device's float32 gradients lie from the float64 run's on
+# the card by up to (card, CPU) norm-wise a leaf over the arch's cells:
+# PNA 6.6e-3 and 2.6e-3 (its std aggregator's E[x²] - E[x]² cancels, and
+# eps 1e-5 makes d std / d var up to 158), MeshGraphNet 1.7e-3 and 1.9e-4
+# (its node encoder's first weight behind 15 LayerNorms: two card runs
+# of it lay 1.7e-4 and 1.7e-3 apart), DimeNet 1.4e-4 and 1.0e-4; two
+# runs can differ by the sum, so a leaf within about 2.5 times it
+# (measured card against CPU: 6.5e-3, 1.7e-3, 1.5e-4).  The gradient
+# norm within about three times the sum of the two sides' distances to
+# float64 (PNA 6.5e-5, MeshGraphNet 1e-5, DimeNet 6e-6; measured 5.7e-5,
+# 5e-6, 3.6e-6).  The loss: PNA's and
+# MeshGraphNet's within 1e-6 (measured 0 and 8.9e-8); DimeNet's, a sum of
+# float32 energies over up to 169,984 atoms and six blocks whose
+# scatter-adds are float atomics on the card, within 1e-4 (card against
+# CPU 4.2e-6; two card runs 1.5e-5 apart).  One AdamW step moves an
+# element by about lr·sign(g), so an element whose gradient the two
+# devices round to either side of 0 moves 2·lr apart: each leaf's new
+# weights within 0.5 of its update's norm (measured up to 0.22, on a
+# PNA bias whose gradient lies 6.6e-3 from float64); a wrong step (a
+# missing bias correction, the wrong rate) misses by 1 or more
+GNN_TOL = {"pna": {"loss": 1e-6, "gnorm": 2e-4, "grad": 2e-2},
+           "meshgraphnet": {"loss": 1e-6, "gnorm": 3e-5, "grad": 5e-3},
+           "dimenet": {"loss": 1e-4, "gnorm": 3e-5, "grad": 5e-4}}
+GNN_ADAM_RTOL = 0.5
+# (b)'s warm passes a cell: forward + backward, then AdamW, each timed
+GNN_WARM = 5
+# the cells whose CPU step is cut: DimeNet's at minibatch_lg took 69-72 s
+# on the GPU machine's 8-core host, more than half the phase, with the
+# script near its time limit.  The card still runs the whole cell, and
+# its float32 step is held to its float64 run there, within GNN_TOL (its
+# CPU comparison is made at molecule)
+GNN_CARD_ONLY = {("dimenet", "minibatch_lg")}
+
+
+def gnn_opt():
+    from repro_torch.train.optimizer import OptConfig
+
+    return OptConfig(lr=3e-3, warmup_steps=10, total_steps=GNN_A_STEPS)
+
+
+def gnn_cell_batch(torch, arch, cell: str, seed: int) -> dict:
+    """A batch in the arch's own layout at ``cell``'s sizes
+    (``gnn_common.cell_batch``: DimeNet's ``t = 8e`` triplets), drawn from
+    ``seed`` as the smoke batches are, on the host, checked against the
+    arch's ``input_specs``."""
+    from repro_torch.configs.gnn_common import cell_batch
+
+    _, batch = cell_batch(arch, cell, seed)
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+    check(shapes == {k: (tuple(v.shape), v.dtype)
+                     for k, v in arch.input_specs(cell).items()},
+          f"phase 12: {arch.name} {cell} batch {shapes}")
+    return batch
+
+
+def gnn_card_cell(torch, name: str, cell: str, held: int) -> dict:
+    """(b)'s card side for ``name`` at ``cell``: weights from
+    ``GNN_SEED``, one step split into H2D, forward, backward and AdamW
+    (CUDA events), the peak memory above the phase's start, and the same
+    gradients again from the same weights (the card's own spread: its
+    scatter-adds are float atomics).  Returns the step's numbers, the
+    gradients and updated weights on the host, and the starting weights
+    and the batch for ``gnn_compare_cell``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train.optimizer import (adamw_init, adamw_update,
+                                             global_norm)
+    from repro_torch.train.trainstep import batch_to, named_params
+
+    arch = get_arch(name)
+    cfg = arch.config_for(cell)
+    t0 = time.perf_counter()
+    batch = gnn_cell_batch(torch, arch, cell, GNN_SEED)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(torch, name, cfg, "cuda", seed=GNN_SEED)
+    params = named_params(model)
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    opt_state = adamw_init(params, gnn_opt())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    b = batch_to(batch, "cuda")
+    ev[1].record()
+    loss = arch.loss_fn(model, b)
+    ev[2].record()
+    grads = dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()), allow_unused=True,
+        materialize_grads=True)))
+    ev[3].record()
+    adamw_update(params, grads, opt_state, gnn_opt())
+    ev[4].record()
+    torch.cuda.synchronize()
+    split = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in
+             enumerate(("h2d", "forward", "backward", "optimizer"))}
+    split["host_batch"] = host_ms
+    out = {"params": sum(p.numel() for p in params.values()),
+           "shapes": {k: list(v.shape) for k, v in batch.items()},
+           "split_ms": split,
+           "peak_bytes": torch.cuda.max_memory_allocated() - held,
+           "loss": float(loss.detach()),
+           "grad_norm": float(global_norm(grads)),
+           "after": {k: p.detach().to("cpu", copy=True)
+                     for k, p in params.items()}}
+    # GNN_WARM more passes of the step's forward and backward, warm, from
+    # the same weights, then GNN_WARM AdamW updates: each part's median
+    # and range, and the card's own spread (the first pass's gradients
+    # against the step's)
+    model.load_state_dict(state)
+    warm = {"forward": [], "backward": [], "optimizer": []}
+    again = loss2 = None
+    for _ in range(GNN_WARM):
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss_w = arch.loss_fn(model, b)
+        ev[1].record()
+        grads_w = dict(zip(params, torch.autograd.grad(
+            loss_w, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
+        ev[2].record()
+        torch.cuda.synchronize()
+        warm["forward"].append(ev[0].elapsed_time(ev[1]))
+        warm["backward"].append(ev[1].elapsed_time(ev[2]))
+        if again is None:
+            again, loss2 = grads_w, float(loss_w.detach())
+        del loss_w, grads_w
+    for _ in range(GNN_WARM):
+        ev[0].record()
+        adamw_update(params, again, opt_state, gnn_opt())
+        ev[1].record()
+        torch.cuda.synchronize()
+        warm["optimizer"].append(ev[0].elapsed_time(ev[1]))
+    split["warm"] = {k: {"median": float(np.median(v)), "min": min(v),
+                         "max": max(v)} for k, v in warm.items()}
+    out["card_again"] = {
+        "loss": loss2,
+        "bit_equal": loss2 == out["loss"] and all(
+            torch.equal(again[k], g) for k, g in grads.items()),
+        "worst": max((lm_rel(torch, again[k], g), k)
+                     for k, g in grads.items())}
+    out["grads"] = {k: g.cpu() for k, g in grads.items()}
+    out["_state"], out["_batch"] = state, batch
+    return out
+
+
+def gnn_compare_cell(torch, name: str, cell: str, rec: dict) -> dict:
+    """(b)'s comparison for one cell: the float64 run on the card from
+    the card step's starting weights, then (but at ``GNN_CARD_ONLY``'s
+    cells) the same float32 step on the CPU; per leaf the norm-wise gaps
+    card-float64, card-CPU and CPU-float64 of the gradients, and card-CPU
+    of the updated weights over the CPU's update."""
+    import dataclasses
+
+    from torch.linalg import vector_norm
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train.optimizer import (adamw_init, adamw_update,
+                                             global_norm)
+    from repro_torch.train.trainstep import (batch_to, named_params,
+                                             value_and_grad)
+
+    arch = get_arch(name)
+    cfg = arch.config_for(cell)
+    state, batch = rec.pop("_state"), rec.pop("_batch")
+    grads, after = rec.pop("grads"), rec.pop("after")
+    t0 = time.perf_counter()
+    card = lm_model(torch, name, dataclasses.replace(
+        cfg, compute_dtype="float64"), "cuda", state=state).double()
+    l64, g64 = value_and_grad(arch.loss_fn, card, batch_to(batch, "cuda"))
+    del card
+    row = {"float64_loss": float(l64), "float64_s": time.perf_counter() - t0,
+           "float64_grad_norm": float(torch.sqrt(sum(
+               torch.sum(g * g) for g in g64.values()))),
+           "leaves": {k: {"card_f64": lm_rel(torch, g.to("cuda"), g64[k])}
+                      for k, g in grads.items()}}
+    if (name, cell) not in GNN_CARD_ONLY:
+        t_h = time.perf_counter()
+        cpu = lm_model(torch, name, cfg, "cpu", state=state)
+        l_h, g_h = value_and_grad(arch.loss_fn, cpu, batch)
+        params_h = named_params(cpu)
+        t_a = time.perf_counter()
+        adamw_update(params_h, g_h, adamw_init(params_h, gnn_opt()),
+                     gnn_opt())
+        row.update(cpu_loss=float(l_h),
+                   cpu_grad_norm=float(global_norm(g_h)),
+                   cpu_grads_s=t_a - t_h,
+                   cpu_adamw_s=time.perf_counter() - t_a)
+        for k, g in g_h.items():
+            gh = g.to("cuda")
+            start = state[k].to("cuda")
+            after_h = params_h[k].detach().to("cuda")
+            row["leaves"][k].update(
+                card_cpu=lm_rel(torch, grads[k].to("cuda"), gh),
+                cpu_f64=lm_rel(torch, gh, g64[k]),
+                adam_card_cpu=float(
+                    vector_norm(after[k].to("cuda") - after_h,
+                                dtype=torch.float64)
+                    / vector_norm(after_h - start, dtype=torch.float64)
+                    .clamp(min=1e-300)))
+    row["worst"] = {f: max((v[f], k) for k, v in row["leaves"].items())
+                    for f in next(iter(row["leaves"].values()))}
+    return row
+
+
+def gnn_check_b(name: str, cell: str, rec: dict) -> None:
+    """(b)'s checks: loss, gradient norm, each gradient leaf norm-wise and
+    the AdamW step's weights, card against CPU, within ``GNN_TOL`` and
+    ``GNN_ADAM_RTOL``; at ``GNN_CARD_ONLY``'s cells the card's loss,
+    gradient norm and leaves against the float64 run, within the same."""
+    what = f"phase 12 (b) {name} {cell}"
+    tol = GNN_TOL[name]
+    other, side, leaf = (("float64", "the float64 run", "card_f64")
+                         if (name, cell) in GNN_CARD_ONLY
+                         else ("cpu", "the CPU", "card_cpu"))
+    l_c, l_o = rec["loss"], rec[f"{other}_loss"]
+    g_c, g_o = rec["grad_norm"], rec[f"{other}_grad_norm"]
+    check(np.isfinite(l_c) and abs(l_c - l_o) <= tol["loss"] * abs(l_o),
+          f"{what}: loss {l_c} on the card, {l_o} on {side}")
+    check(abs(g_c - g_o) <= tol["gnorm"] * abs(g_o),
+          f"{what}: gradient norm {g_c} on the card, {g_o} on {side}")
+    for k, v in rec["leaves"].items():
+        check(v[leaf] <= tol["grad"],
+              f"{what}: gradient {k} differs from {side}'s: {v}")
+        check(v.get("adam_card_cpu", 0.0) <= GNN_ADAM_RTOL,
+              f"{what}: the AdamW step of {k} differs from the CPU's: {v}")
+
+
+def gnn_ogb_cuts(torch) -> dict:
+    """(c): why ``ogb_products`` (2,449,029 nodes, 61,859,140 edges, d_feat
+    100) runs no arch on one card: the float32 bytes of one tensor each
+    arch's step must form, against the card's free memory now."""
+    from repro_torch.configs.common import GNN_SHAPES
+
+    s = GNN_SHAPES["ogb_products"]
+    e, d = s["e"], s["d_feat"]
+    free, total = torch.cuda.mem_get_info()
+    cuts = {
+        "pna": {"tensor": "the first layer's x[src], x[dst] [E, 100] and "
+                          "their concatenation [E, 200], before its MLP",
+                "bytes": 4 * e * d * 4},
+        "meshgraphnet": {"tensor": "the first block's edge-MLP input [E, "
+                                   "384] (h[src], h[dst], edge features)",
+                         "bytes": e * 3 * 128 * 4},
+        "dimenet": {"tensor": "the angular basis sbf [T, 42] at T = 8E = "
+                              f"{8 * e} triplets",
+                    "bytes": 8 * e * 7 * 6 * 4},
+    }
+    for name, c in cuts.items():
+        check(c["bytes"] > free, f"phase 12 (c): {name} at ogb_products "
+                                 f"needs {c['bytes']} B, {free} B free")
+    return {"edges": e, "free_bytes": free, "total_bytes": total,
+            "cuts": cuts}
+
+
+def gnn_phase(torch, card: str):
+    """Phase 12: PNA, MeshGraphNet and DimeNet at their published widths on
+    the card.  ``drive``, the launch window's whole content: (a)
+    ``repro_torch.launch.train.main`` trains PNA (d_feat 1433) for 20
+    steps on the sampled stream, every step's loss logged; (b) one step
+    of each arch at each cell of ``GNN_B_CELLS`` on the card
+    (``gnn_card_cell``).  ``finish(out, launches)``, after the window:
+    (a)'s first ``GNN_A_HELD`` steps twice on the CPU from the same
+    seed's weights, the losses against the card's; (b) each cell's
+    float64 run on the card and its CPU step (``gnn_compare_cell``) within
+    ``GNN_*``; (c) the ``ogb_products`` cuts.  Returns ``(drive, finish)``."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="gnn.", dir=ROOT / "build"))
+    argv = ["--arch", GNN_A_ARCH, "--preset", "full", "--steps",
+            str(GNN_A_STEPS), "--ckpt-dir", str(work / "cuda"),
+            "--ckpt-every", "1000"]
+
+    def every_step(args):
+        trainer = build(args)
+        trainer.cfg.log_every = 1
+        return trainer
+
+    build = launch_train.build
+
+    def drive():
+        t0 = time.perf_counter()
+        out = {"held_before_phase": held}
+        buf = io.StringIO()
+        launch_train.build = every_step
+        try:
+            with contextlib.redirect_stdout(buf):
+                trainer = launch_train.main(argv + ["--device", "cuda"])
+        finally:
+            launch_train.build = build
+        torch.cuda.synchronize()
+        out["a"] = {"printed": buf.getvalue(),
+                    "params": sum(p.numel()
+                                  for p in trainer.params.parameters()),
+                    "losses": [r["loss"] for r in trainer.metrics_log],
+                    "wall_s": time.perf_counter() - t0}
+        del trainer
+        out["b"] = {}
+        for name, cell in GNN_B_CELLS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            row = gnn_card_cell(torch, name, cell, held)
+            row["card_s"] = time.perf_counter() - t1
+            out["b"][f"{name}/{cell}"] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["drive_s"] = time.perf_counter() - t0
+        return out
+
+    def finish(got: dict, launched: dict) -> dict:
+        t_start = time.perf_counter()
+        info = {"card": card, "launches": launched, **got}
+        a = got["a"]
+        check(f"final step={GNN_A_STEPS} loss=" in a["printed"],
+              f"phase 12 (a): no 'final step={GNN_A_STEPS}' line: "
+              f"{a['printed']!r}")
+        arch = get_arch(GNN_A_ARCH)
+        init = launch_train.model_for(
+            arch, arch.config, "cuda",
+            torch.Generator(device="cuda").manual_seed(0))
+        init = {k: v.cpu() for k, v in init.state_dict().items()}
+        runs = []
+        t_cpu = time.perf_counter()
+        for i in range(2):  # twice: the CPU's own spread
+            tr = launch_train.build(launch_train.parse_args(
+                argv[:-4] + ["--ckpt-dir", str(work / f"cpu{i}"),
+                             "--ckpt-every", "1000", "--device", "cpu"]))
+            tr.params.load_state_dict(init)
+            tr.cfg.log_every = 1
+            tr.cfg.total_steps = GNN_A_HELD  # of the 20-step schedule
+            tr.fit()
+            runs.append(np.array([r["loss"] for r in tr.metrics_log]))
+        del tr, init
+        gl, (cl, cl2) = np.array(a["losses"]), runs
+
+        def rel(x, y):
+            return np.abs(x - y) / np.abs(y)
+
+        check(len(gl) == GNN_A_STEPS and np.all(np.isfinite(gl))
+              and len(cl) == GNN_A_HELD
+              and np.all(rel(gl[:GNN_A_HELD], cl) <= GNN_A_RTOL),
+              f"phase 12 (a): PNA losses on the card {gl} and the CPU {cl}")
+        a.update(losses_cpu=cl.tolist(), losses_cpu_again=cl2.tolist(),
+                 cpu_s=(time.perf_counter() - t_cpu) / 2,
+                 rel_err=rel(gl[:GNN_A_HELD], cl).tolist(),
+                 cpu_spread=rel(cl2, cl).tolist())
+        shutil.rmtree(work)
+        log(f"phase 12 (a) {card}: pna ({a['params']} params) "
+            f"{GNN_A_STEPS} steps through launch.train.main, losses "
+            f"{gl[0]:.5f} -> {gl[-1]:.5f} on the card; relative difference "
+            f"to the CPU's {max(a['rel_err']):.2e} over the first "
+            f"{GNN_A_HELD} steps (two CPU runs: "
+            f"{max(a['cpu_spread']):.2e}); card {a['wall_s']:.1f} s, CPU "
+            f"{a['cpu_s']:.1f} s a run")
+        for key, rec in got["b"].items():
+            name, cell = key.split("/")
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec.update(gnn_compare_cell(torch, name, cell, rec))
+            cpu = (f"CPU {rec['cpu_loss']}, {rec['cpu_grad_norm']} in "
+                   f"{rec['cpu_grads_s']:.1f} + {rec['cpu_adamw_s']:.2f} s"
+                   if "cpu_loss" in rec else "no CPU step (GNN_CARD_ONLY)")
+            log(f"phase 12 (b) {card}: {name} at {cell} ({rec['params']} "
+                f"params, {rec['shapes']}): step {rec['split_ms']} ms, peak "
+                f"{rec['peak_bytes']} B above the phase's start; loss and "
+                f"gradient norm {rec['loss']}, {rec['grad_norm']} (float64 "
+                f"{rec['float64_loss']}, {rec['float64_grad_norm']}; {cpu}); "
+                f"worst {rec['worst']}; card again bit-equal "
+                f"{rec['card_again']['bit_equal']}, worst "
+                f"{rec['card_again']['worst']}; float64 "
+                f"{rec['float64_s']:.1f} s")
+            gnn_check_b(name, cell, rec)
+        info["c"] = gnn_ogb_cuts(torch)
+        log(f"phase 12 (c) {card}: ogb_products cut for every arch: "
+            + "; ".join(f"{k} {v['bytes']} B" for k, v in
+                        info["c"]["cuts"].items())
+            + f" against {info['c']['free_bytes']} B free")
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["finish_s"] = time.perf_counter() - t_start
+        return info
+
+    return drive, finish
+
+
 def held_bytes(torch, label: str) -> dict:
     """The device memory still allocated (after a collection and with the
     allocator's cache emptied), logged under ``label``."""
@@ -4844,7 +5304,14 @@ def main(argv=None) -> int:
     moe["phase_s"] = time.perf_counter() - t_moe
     del drive, finish
     log(f"phase 11: {moe['phase_s']:.1f} s")
-    held.append(held_bytes(torch, "after phase 11"))
+    held.append(held_bytes(torch, "before phase 12"))
+    t_gnn = time.perf_counter()
+    drive, finish = gnn_phase(torch, card)
+    gnn = finish(window("gnn", drive, recorder=None), by_path["gnn"])
+    gnn["phase_s"] = time.perf_counter() - t_gnn
+    del drive, finish
+    log(f"phase 12: {gnn['phase_s']:.1f} s")
+    held.append(held_bytes(torch, "after phase 12"))
 
     fill_launches(table, by_path)
     report = {"card": card, "torch": torch.__version__,
@@ -4852,6 +5319,7 @@ def main(argv=None) -> int:
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "serve": serve,
               "sharded": sharded, "zoo": zoo, "lm": lm, "moe": moe,
+              "gnn": gnn,
               "held": held, "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}

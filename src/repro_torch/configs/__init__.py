@@ -1,7 +1,8 @@
-"""Architecture registry: ``--arch <id>`` resolution over the archs the
-port has so far: the dense LMs, the MoE LMs (DeepSeek-V2 with MLA, DBRX),
-DLRM and GCN (the reference registers ten plus the engine; PNA,
-MeshGraphNet and DimeNet come with later slices)."""
+"""Architecture registry: ``--arch <id>`` resolution over the reference's
+ten assigned archs: the dense LMs, the MoE LMs (DeepSeek-V2 with MLA,
+DBRX), the GNNs (GCN, PNA, MeshGraphNet, DimeNet) and DLRM.  The
+reference's engine workload (``turbohom``, its dry-run cells) comes with
+the sharding slice."""
 
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ _ARCH_MODULES = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "dimenet": "repro_torch.configs.dimenet",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "pna": "repro_torch.configs.pna",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
 }

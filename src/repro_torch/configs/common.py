@@ -36,6 +36,10 @@ class ArchDef:
     notes: str = ""
     # per-cell config override (e.g. GNN d_feat follows the shape cell)
     cell_config: Callable[[str], Any] | None = None
+    # (config, device=..., generator=...) -> the arch's nn.Module
+    model: Callable | None = None
+    # a GNN's batch layout (configs.gnn_common.GraphLayout), else None
+    layout: Any = None
 
     def config_for(self, cell_name: str):
         if self.cell_config is not None:
@@ -111,21 +115,38 @@ def lm_input_specs(cfg, cell_name: str) -> dict:
             "cache": init_cache(cfg, s["batch"], s["seq"], device="meta")}
 
 
-def gnn_input_specs(cfg, cell_name: str) -> dict:
-    """Node-classification layout (gcn)."""
+@dataclass(frozen=True)
+class GraphDims:
+    """A GNN batch's sizes: nodes, edges, graphs, triplets (pairs of
+    edges k->j, j->i) and the width of a node's input features."""
+    n: int
+    e: int
+    n_graphs: int = 1
+    t: int = 0
+    d_feat: int = 0
+
+
+def gnn_cell_dims(cell_name: str) -> GraphDims:
+    """A GNN cell's sizes, with a triplet budget of ``8e`` (DimeNet++-style
+    cap)."""
     s = GNN_SHAPES[cell_name]
     if s["regime"] == "sampled":
         n, e = sampled_block_dims(s["batch_nodes"], s["fanout"])
-        d_feat = s["d_feat"]
+        n_graphs = 1
     elif s["regime"] == "batched":
-        n = s["n_per"] * s["batch"]
-        e = s["e_per"] * s["batch"]
-        d_feat = s["d_feat"]
+        n, e = s["n_per"] * s["batch"], s["e_per"] * s["batch"]
+        n_graphs = s["batch"]
     else:
-        n, e, d_feat = s["n"], s["e"], s["d_feat"]
-    return {"edge_src": sds((e,)), "edge_dst": sds((e,)),
-            "x": sds((n, d_feat), torch.float32), "labels": sds((n,)),
-            "train_mask": sds((n,), torch.bool)}
+        n, e, n_graphs = s["n"], s["e"], 1
+    return GraphDims(n, e, n_graphs, 8 * e, s["d_feat"])
+
+
+def gnn_input_specs(layout, cfg, cell_name: str) -> dict:
+    """The cell's batch in ``layout``: the edge lists, then the layout's
+    own fields at the cell's sizes."""
+    dims = gnn_cell_dims(cell_name)
+    return {"edge_src": sds((dims.e,)), "edge_dst": sds((dims.e,)),
+            **layout.fields(cfg, dims)}
 
 
 def recsys_input_specs(cfg, cell_name: str) -> dict:

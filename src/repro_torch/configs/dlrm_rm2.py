@@ -54,6 +54,7 @@ ARCH = ArchDef(
     input_specs=lambda cell: recsys_input_specs(CONFIG, cell),
     smoke=_smoke,
     loss_fn=dlrm.loss_fn,
+    model=dlrm.DLRM,
     notes="EmbeddingBag = the fixed-hotness segment_gather kernel with its "
           "gradient; retrieval_cand scores 1M candidates with one GEMV",
 )

@@ -4,7 +4,7 @@ d_feat/n_classes follow the active shape cell (cora defaults here)."""
 
 import dataclasses
 
-from repro_torch.configs.gnn_common import gnn_archdef
+from repro_torch.configs.gnn_common import NODE_CLASS, gnn_archdef
 from repro_torch.models.gnn import gcn
 
 CONFIG = gcn.GCNConfig(
@@ -13,4 +13,5 @@ CONFIG = gcn.GCNConfig(
 SMALL = dataclasses.replace(CONFIG, d_feat=12, n_classes=4)
 
 ARCH = gnn_archdef("gcn-cora", CONFIG, gcn.loss_fn, SMALL,
+                   model=gcn.GCN, layout=NODE_CLASS,
                    notes="2-layer sym-norm GCN [arXiv:1609.02907]")

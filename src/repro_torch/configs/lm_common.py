@@ -47,4 +47,5 @@ def lm_archdef(cfg: LMConfig, notes: str = "") -> ArchDef:
         smoke=smoke,
         loss_fn=transformer.loss_fn,
         notes=notes,
+        model=transformer.TransformerLM,
     )

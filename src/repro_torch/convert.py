@@ -158,8 +158,13 @@ def params_from_jax(arch_name: str, tree) -> dict:
     """The port module's ``state_dict`` from the reference's parameter
     pytree (leaves as numpy arrays): ``{"tables": [...], "bot": {"w":
     [...], "b": [...]}, "top": ...}`` for DLRM, ``{"w": [...]}`` for GCN,
-    ``{"embed", "final_ln", "lm_head", "dense_layers": {...},
-    "moe_layers": {...}}`` (layers stacked) for an LM."""
+    ``{"layers": [{"pre", "post"}], "head"}`` for PNA, ``{"node_enc",
+    "edge_enc": {"mlp", "ln_g", "ln_b"}, "decoder", "blocks": [{"edge",
+    "node"}]}`` for MeshGraphNet, ``{"embed_z", "rbf_w", "edge_embed",
+    "blocks": [{"w_src", "w_sbf", "w_bil", "update"}], "out_blocks"}``
+    for DimeNet (each MLP ``{"w": [...], "b": [...]}``), ``{"embed",
+    "final_ln", "lm_head", "dense_layers": {...}, "moe_layers": {...}}``
+    (layers stacked) for an LM."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -172,7 +177,12 @@ def params_from_jax(arch_name: str, tree) -> dict:
 def adam_state_from_jax(state):
     """The port's :class:`~repro_torch.train.optimizer.AdamWState` from the
     reference's ``AdamWState(step, mu, nu, err)`` (leaves as numpy
-    arrays), its moments named like the port module's parameters."""
+    arrays), its moments named like the port module's parameters: each
+    moment tree has its arch's parameter layout (see
+    :func:`params_from_jax`; PNA's ``layers`` / ``head``, MeshGraphNet's
+    ``node_enc`` / ``edge_enc`` / ``decoder`` / ``blocks``, DimeNet's
+    ``embed_z`` / ``rbf_w`` / ``edge_embed`` / ``blocks`` /
+    ``out_blocks``)."""
     import torch
 
     from repro_torch.train.optimizer import AdamWState

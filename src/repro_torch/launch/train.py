@@ -4,9 +4,10 @@ Builds the arch's model (reduced or full) on ``--device`` (default
 ``cuda``, which fails without CUDA; ``--device cpu`` runs the kernels'
 plain versions) from a ``torch.Generator`` seeded by ``--seed``, the data
 stream and the train step, and runs the fault-tolerant loop with
-checkpointing.  The ported archs are the dense LMs (``qwen2-1.5b``,
+checkpointing.  The archs are the dense LMs (``qwen2-1.5b``,
 ``qwen3-8b``, ``minitron-8b``), the MoE LMs (``deepseek-v2-236b``, MLA
-and MoE; ``dbrx-132b``), ``dlrm-rm2`` and ``gcn-cora``:
+and MoE; ``dbrx-132b``), ``dlrm-rm2`` and the GNNs (``gcn-cora``,
+``pna``, ``meshgraphnet``, ``dimenet``):
 
     python -m repro_torch.launch.train --arch dlrm-rm2 --device cpu --steps 5
     python -m repro_torch.launch.train --arch dlrm-rm2 --preset full --batch 65536
@@ -15,8 +16,12 @@ and MoE; ``dbrx-132b``), ``dlrm-rm2`` and ``gcn-cora``:
         --steps 3
     python -m repro_torch.launch.train --arch qwen2-1.5b --preset full \
         --batch 4 --seq 4096 --microbatches 2
+    python -m repro_torch.launch.train --arch pna --device cpu --steps 3
 
-An LM under ``--preset full`` needs ``--batch`` and ``--seq``.
+An LM under ``--preset full`` needs ``--batch`` and ``--seq``.  The GNNs
+train on the sampled node-classification stream, which MeshGraphNet and
+DimeNet cannot read (they need a mesh's or molecules' fields): both exit
+with a message under either preset.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs import all_archs, get_arch
+from repro_torch.configs.common import GraphDims
 from repro_torch.core.exec import resolve_device
 from repro_torch.train.data import (RecsysStream, SampledGraphStream,
                                     TokenStream)
@@ -46,7 +52,8 @@ def _stream_for(arch, cfg, example, args):
                             vocab_sizes=cfg.vocab_sizes,
                             batch=args.batch or 64, seed=args.seed)
     # gnn: sampled stream over a synthetic graph
-    return SampledGraphStream(n_nodes=5000, avg_degree=8, d_feat=cfg.d_feat,
+    return SampledGraphStream(n_nodes=5000, avg_degree=8,
+                              d_feat=getattr(cfg, arch.layout.width),
                               n_classes=cfg.n_classes,
                               batch_nodes=args.batch or 64, fanout=[5, 3],
                               seed=args.seed)
@@ -55,18 +62,14 @@ def _stream_for(arch, cfg, example, args):
 def model_for(arch, cfg, device, generator):
     """The arch's module on ``device``, its weights drawn from
     ``generator``."""
-    if arch.family == "lm":
-        from repro_torch.models import transformer
+    return arch.model(cfg, device=device, generator=generator)
 
-        return transformer.TransformerLM(cfg, device=device,
-                                         generator=generator)
-    if arch.family == "recsys":
-        from repro_torch.models.recsys import dlrm
 
-        return dlrm.DLRM(cfg, device=device, generator=generator)
-    from repro_torch.models.gnn import gcn
-
-    return gcn.GCN(cfg, device=device, generator=generator)
+def _not_sampled(arch) -> list[str]:
+    """The fields of a GNN's batch layout that the sampled
+    node-classification stream does not give."""
+    fields = arch.layout.fields(arch.config, GraphDims(1, 1))
+    return [k for k in fields if k not in SampledGraphStream.FIELDS]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -98,6 +101,16 @@ def build(args: argparse.Namespace) -> Trainer:
             and (args.batch is None or args.seq is None)):
         raise SystemExit(f"--preset full for the LM {args.arch} needs "
                          f"--batch and --seq (e.g. --batch 4 --seq 4096)")
+    missing = _not_sampled(arch) if arch.family == "gnn" else []
+    if missing:
+        if args.preset == "smoke":
+            raise SystemExit(
+                f"{args.arch} smoke training uses the molecule layout; "
+                "run examples/gnn_training.py instead")
+        raise SystemExit(
+            f"--preset full for {args.arch}: the sampled graph stream gives "
+            f"{', '.join(SampledGraphStream.FIELDS)}, not "
+            f"{', '.join(missing)}, so {args.arch} cannot train on it")
     device = resolve_device(args.device)
     cfg, example = (arch.smoke() if args.preset == "smoke"
                     else (arch.config, None))

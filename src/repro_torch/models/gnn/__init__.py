@@ -1,4 +1,5 @@
-from repro_torch.models.gnn import gcn
+from repro_torch.models.gnn import dimenet, gcn, meshgraphnet, pna
 from repro_torch.models.gnn.common import segment_mean, segment_softmax_norm
 
-__all__ = ["gcn", "segment_mean", "segment_softmax_norm"]
+__all__ = ["dimenet", "gcn", "meshgraphnet", "pna", "segment_mean",
+           "segment_softmax_norm"]

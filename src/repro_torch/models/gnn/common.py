@@ -7,12 +7,27 @@ ones too) where torch would raise, so every scatter here drops exactly
 those entries first; and a gather by an edge index wraps a negative id
 once and clamps into ``[0, n-1]``, as JAX's indexing does, passing no
 gradient back from a clamped id (:func:`take`).  The explicit-SPMD
-variants (``*_spmd``) come with the sharding slice.
+variants (``*_spmd``) come with the sharding slice (ROADMAP Queue 1 item
+3): a config with ``spmd_axes`` set is refused by :func:`no_spmd`.
 """
 
 from __future__ import annotations
 
 import torch
+
+# a config's ``compute_dtype`` (float64 for runs against a float64 truth)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+
+
+def no_spmd(cfg) -> None:
+    """Raise for a config that asks for explicit-SPMD aggregation, which
+    the port does not have yet."""
+    if getattr(cfg, "spmd_axes", ()):
+        raise NotImplementedError(
+            f"{cfg.name}: spmd_axes={cfg.spmd_axes!r} needs the sharded GNN "
+            f"aggregations, which come with the sharding slice (ROADMAP "
+            f"Queue 1 item 3)")
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -14,10 +14,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from repro_torch.models.gnn.common import degrees, segment_sum, take
+from repro_torch.models.gnn.common import DTYPES, degrees, segment_sum, take
 from repro_torch.models.layers import cross_entropy_loss, dense_init
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -31,7 +29,7 @@ class GCNConfig:
 
     @property
     def dtype(self) -> torch.dtype:
-        return _DTYPES[self.compute_dtype]
+        return DTYPES[self.compute_dtype]
 
 
 class GCN(nn.Module):

@@ -42,20 +42,26 @@ def embed_init(vocab: int, dim: int, *,
 
 
 # ------------------------------------------------------------------- norms
+def _stats_dtype(dt: torch.dtype) -> torch.dtype:
+    """Float32, or float64 for a float64 run (the reference has none)."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """Statistics in float32, the normalized value cast back to ``x``'s
-    dtype, then times ``gamma`` in that dtype."""
+    """Statistics in float32 (float64 for float64), the normalized value
+    cast back to ``x``'s dtype, then times ``gamma`` in that dtype."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = x.to(_stats_dtype(dt))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
+    """Statistics as :func:`rmsnorm`'s."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = x.to(_stats_dtype(dt))
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
@@ -167,12 +173,12 @@ def mlp_apply(params: MLP, x, act: Callable = torch.relu,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore: int = -1) -> torch.Tensor:
-    """Mean CE over non-ignored positions; logits [..., V], labels int
-    [...]."""
-    logits = logits.float()
+    """Mean CE over non-ignored positions, in float32 (float64 for
+    float64); logits [..., V], labels int [...]."""
+    logits = logits.to(_stats_dtype(logits.dtype))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       labels.long().clamp(min=0)[..., None])[..., 0]
     nll = lse - ll
-    mask = (labels != ignore).float()
+    mask = (labels != ignore).to(nll.dtype)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

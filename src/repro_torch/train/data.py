@@ -65,6 +65,9 @@ class RecsysStream:
 class SampledGraphStream:
     """Layered-fanout neighbor sampling over a synthetic power-law graph."""
 
+    # the fields of each batch
+    FIELDS = ("x", "edge_src", "edge_dst", "labels", "train_mask")
+
     def __init__(self, n_nodes: int, avg_degree: int, d_feat: int,
                  n_classes: int, batch_nodes: int, fanout, seed: int = 0):
         rng = np.random.default_rng(seed)

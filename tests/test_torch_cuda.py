@@ -1225,3 +1225,73 @@ def test_cuda_moe_apply_repeats_bits(cuda):
         assert torch.equal(first[1], again[1])
         for a, b in zip(first[2], again[2]):
             assert torch.equal(a, b)
+
+
+# a GNN's SMALL step, card against CPU from the same weights and smoke
+# batch (TF32 off), beside a float64 run on the CPU.  The card's
+# scatter-adds are float atomics and PNA's std aggregator cancels
+# (E[x²] - E[x]², eps 1e-5), so float32 gradients lie well away from
+# float64 on both devices (phase 12 of chip_smoke.py: up to 6.6e-3 a PNA
+# leaf norm-wise): each card gradient leaf and the card's loss lie no
+# farther from float64 than twice the CPU's own float32 ones do (or 1e-6
+# of the value, where the CPU's is exact).  One AdamW step (lr 3e-3)
+# moves an element by about lr·sign(g), so an element whose gradient the
+# devices round to either side of 0 moves 2·lr apart: each leaf's new
+# weights within 0.5 of its update's norm (chip_smoke.py's
+# GNN_ADAM_RTOL); a wrong step misses by 1 or more
+GNN_SMOKE_F64 = 2.0
+GNN_SMOKE_FLOOR = 1e-6
+GNN_SMOKE_ADAM = 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pna", "meshgraphnet", "dimenet"])
+def test_cuda_gnn_small_step_matches_cpu(cuda, name):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import model_for
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import (make_train_step, named_params,
+                                             value_and_grad)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = get_arch(name)
+    cfg, batch = arch.smoke()
+    opt = OptConfig(lr=3e-3, warmup_steps=1)
+    start = model_for(arch, cfg, "cpu",
+                      torch.Generator().manual_seed(0)).state_dict()
+    truth = model_for(arch, dataclasses.replace(cfg, compute_dtype="float64"),
+                      "cpu", None).double()
+    truth.load_state_dict({k: v.double() for k, v in start.items()})
+    l64, g64 = value_and_grad(arch.loss_fn, truth, batch)
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_for(arch, cfg, device, None)
+        model.load_state_dict(start)
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss, grads = value_and_grad(arch.loss_fn, model, b)
+        state = adamw_init(named_params(model), opt)
+        make_train_step(arch.loss_fn, model, opt)(model, state, b)
+        out[torch.device(device).type] = {
+            "loss": float(loss),
+            "grads": {k: g.cpu().double() for k, g in grads.items()},
+            "after": {k: t.detach().cpu().double()
+                      for k, t in model.state_dict().items()}}
+    cpu, gpu = out["cpu"], out["cuda"]
+
+    def within(got, want, t, size):
+        """``got`` no farther from the float64 ``t`` than twice ``want``
+        is, or than the floor of ``size``."""
+        return abs(got - t) <= max(GNN_SMOKE_F64 * abs(want - t),
+                                   GNN_SMOKE_FLOOR * size)
+
+    assert within(gpu["loss"], cpu["loss"], float(l64), abs(float(l64)))
+    for k, t in g64.items():
+        t = t.double()
+        card_err = float((gpu["grads"][k] - t).norm())
+        cpu_err = float((cpu["grads"][k] - t).norm())
+        assert within(card_err, cpu_err, 0.0, float(t.norm())), k
+        step = cpu["after"][k] - start[k].double()
+        assert float((gpu["after"][k] - cpu["after"][k]).norm()) <= \
+            GNN_SMOKE_ADAM * float(step.norm()), k

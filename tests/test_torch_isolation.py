@@ -62,9 +62,12 @@ with Scheduler(reg, workers=2, metrics=reg.metrics) as sched:
 assert res.count > 0 and res.stats["trace"]["root"]["children"]
 import tempfile
 import repro_torch.configs.common
+import repro_torch.configs.dimenet
 import repro_torch.configs.dlrm_rm2
 import repro_torch.configs.gcn_cora
 import repro_torch.configs.gnn_common
+import repro_torch.configs.meshgraphnet
+import repro_torch.configs.pna
 import repro_torch.configs.lm_common
 import repro_torch.configs.minitron_8b
 import repro_torch.configs.qwen2_1p5b
@@ -72,7 +75,10 @@ import repro_torch.configs.qwen3_8b
 import repro_torch.convert
 import repro_torch.kernels.autograd
 import repro_torch.models.gnn.common
+import repro_torch.models.gnn.dimenet
 import repro_torch.models.gnn.gcn
+import repro_torch.models.gnn.meshgraphnet
+import repro_torch.models.gnn.pna
 import repro_torch.models.gnn.sampler
 import repro_torch.models.layers
 import repro_torch.models.recsys.dlrm
@@ -85,7 +91,7 @@ import repro_torch.train.straggler
 import repro_torch.train.trainstep
 from repro_torch.launch import train as launch_train
 with tempfile.TemporaryDirectory() as d:
-    for arch in ("dlrm-rm2", "gcn-cora", "qwen3-8b"):
+    for arch in ("dlrm-rm2", "gcn-cora", "pna", "qwen3-8b"):
         tr = launch_train.main(["--arch", arch, "--device", "cpu", "--steps",
                                 "2", "--ckpt-dir", d])
         assert tr.ckpt.latest_step() == 2
@@ -94,6 +100,13 @@ lm = tr.params
 cache = transformer.init_cache(lm.cfg, 1, 8, device="cpu")
 logits, cache = transformer.decode_step(lm, cache, torch.zeros((1, 3), dtype=torch.int32))
 assert logits.shape == (1, 3, lm.cfg.vocab) and int(cache["pos"]) == 3
+from repro_torch.configs import get_arch
+from repro_torch.models.gnn import dimenet, meshgraphnet
+for name, mod in (("meshgraphnet", meshgraphnet), ("dimenet", dimenet)):
+    arch = get_arch(name)
+    cfg, batch = arch.smoke()
+    model = launch_train.model_for(arch, cfg, "cpu", torch.Generator().manual_seed(0))
+    assert torch.isfinite(mod.loss_fn(model, batch))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "repro" or m.startswith("jax")
              or m.startswith("jaxlib"))
