@@ -176,14 +176,16 @@ Phases, each fatal on failure (no phase's error is caught):
    decode step is timed with CUDA events beside its bound (the float32
    weights and the cache read once); (b) qwen3-8b (qk_norm) and
    minitron-8b (vocab 256,000, theta 1e4) at full width and depth 2, batch
-   2 x 128, from the same weights on the card and on the CPU, in float32
-   and in bfloat16 compute: the loss, the gradient norm, each gradient
-   leaf norm-wise and one AdamW step within the ``LM_*`` tolerances, with
-   a second card run (the card's own spread) and a float64 run on the
-   card (the truth both sides are measured against) recorded beside them.
-   Cuts: depth (steps, (b)'s layers), batch ((a) 4, ``decode_32k`` 4) and
-   the prefill length, each for the reason given; widths are the
-   published ones;
+   2 x 128, from the same weights on the card and (float32) on the CPU:
+   the loss, the gradient norm, each gradient leaf norm-wise and one AdamW
+   step (the card's, against the step from the CPU's gradients, both
+   taken on the card) within the ``LM_*`` tolerances; in bfloat16 compute
+   each gradient leaf on the card against a float64 run on the card (the
+   truth both sides are measured against), with a second card run (the
+   card's own spread) recorded beside them.  Cuts: depth (steps, (b)'s
+   layers), batch ((a) 4, ``decode_32k`` 4), the prefill length and (b)'s
+   bfloat16 CPU run (``LM_B_CPU_DTYPES``), each for the reason given;
+   widths are the published ones;
 11. moe (after phase 10, whose models are freed first): (a)
    deepseek-v2-236b at its published widths (MLA with q_lora 1536,
    kv_lora 512, 128 heads; 160 routed experts top-6 and 2 shared, d_ff
@@ -213,14 +215,16 @@ Phases, each fatal on failure (no phase's error is caught):
    the card: ``final step=3``, finite losses, every leaf moved, the
    routers included; (b) DeepSeek at depth 2 and DBRX at depth 1 (at 2 its
    weights, two gradient sets and the saved bf16 casts come to about 81
-   GB), batch 2 x 64, card against CPU in float32 and bfloat16: the loss
-   with aux, the gradient norm and each gradient leaf norm-wise within the
-   ``MOE_*`` tolerances, two card runs equal bit for bit (the MoE
+   GB), batch 2 x 64, card against CPU in float32: the loss with aux, the
+   gradient norm and each gradient leaf norm-wise within the ``MOE_*``
+   tolerances, in bfloat16 each gradient leaf against the float64 run,
+   two card runs equal bit for bit in float32 and bfloat16 (the MoE
    dispatch and combine are deterministic), beside a float64 run on the
-   card taken in passes (DeepSeek's float64 weights and gradients at once
-   would take 86 GB).  Cuts: depth ((a), (c) 2; (b) 2 and 1), DBRX's
-   ``decode_32k`` batch and both prefill lengths, each for the reason
-   given; widths are the published ones;
+   card taken in passes (DeepSeek's float64 weights and gradients
+   at once would take 86 GB).  Cuts: depth ((a), (c) 2; (b) 2 and 1),
+   DBRX's ``decode_32k`` batch, both prefill lengths and (b)'s bfloat16
+   CPU run (``MOE_B_CPU_DTYPES``), each for the reason given; widths are
+   the published ones;
 12. gnn (after phase 11): (a) ``repro_torch.launch.train.main`` trains
    PNA at its published widths (4 layers, hidden 75, 4 aggregators × 3
    scalers, d_feat 1433, 16 classes; 667,666 parameters) for 20 steps on
@@ -245,9 +249,26 @@ Phases, each fatal on failure (no phase's error is caught):
    run: its scatter-adds are float atomics) beside them; (c)
    ``ogb_products``: each
    arch's cut, a tensor its step must form against the card's free
-   memory.
+   memory;
+13. sharded training (after phase 12): (a) one NCCL rank, mesh (data,
+   model) = (1, 1): the explicit-SPMD step (``sharding.gnn_spmd``) of
+   GCN at ``full_graph_sm`` and of PNA, MeshGraphNet, DimeNet and
+   DimeNet's edge-sharded v2 at ``minibatch_lg``, published widths,
+   against the unsharded step on the card from the same weights (both
+   with torch's deterministic algorithms): the loss, every gradient leaf
+   and one AdamW step within the reference's SPMD limits (``ST_*``), the
+   collectives counted with ``torch.profiler``, each step's peak and its
+   time (cold, then the median and range of ``ST_WARM`` warm passes,
+   plain and SPMD in turn); (c) qwen2-1.5b at depth 2 and phase 10's 4 x
+   4096: the DP+TP step (``sharding.lm``, DTensor parameters, moments and
+   batch) and ``pipelined_loss`` with one stage and 2 microbatches, each
+   against the plain step on the card (the loss, every gradient leaf, the
+   AdamW update by norm) and timed as (a); (b) after (a) and (c) have
+   run alone, two gloo ranks sharing the card, mesh (1, 2): the same five
+   at ``molecule``, each rank against the unsharded step (it verifies
+   nothing multi-card; no DP+TP step there: ``ST_B_NO_LM``).
 
-The run drives ten paths, each in its own launch-counting window: the
+The run drives eleven paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
 closes), the sharded path (phase 8's ``run_sharded`` and
@@ -268,7 +289,9 @@ kernel, so this window expects none of the seven), and the moe path
 presets' training; the reference's MoE and MLA are plain ``jnp`` too, so
 none of the seven), and the gnn path (phase 12 (a) and (b)'s card
 steps; the reference's PNA, MeshGraphNet and DimeNet aggregate with
-``jax.ops.segment_*`` outside any Pallas kernel, so none of the seven).
+``jax.ops.segment_*`` outside any Pallas kernel, so none of the seven),
+and the sharded_train path (phase 13, all of it; plain torch and
+collectives, none of the seven).
 The device memory still allocated before phases 9-12 is logged and
 recorded (``held`` and each phase's
 ``held_before_phase``).  The
@@ -285,6 +308,7 @@ tree's kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -370,6 +394,9 @@ PATH_KERNELS = {
     # phase 12: PNA, MeshGraphNet and DimeNet aggregate with
     # jax.ops.segment_* outside any Pallas kernel: none of the seven
     "gnn": (),
+    # phase 13: the same models' SPMD steps and the LM's DP+TP step and
+    # pipeline, all plain torch and collectives: none of the seven
+    "sharded_train": (),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -3606,6 +3633,14 @@ LM_B_ARCHS = ("qwen3-8b", "minitron-8b")
 LM_B_LAYERS = 2
 LM_B_BATCH = 2
 LM_B_SEQ = 128
+# the dtypes whose gradients also run on the CPU: the bfloat16 CPU run
+# (17.6 s qwen3-8b, 24.1 s minitron-8b on the H100's host; a shorter
+# sequence saves nothing, the weights' size sets it) is cut for the
+# script's time limit, as phase 11 (b)'s.  In bfloat16 the card's
+# gradients are held to the float64 run's instead, each leaf within
+# LM_GRAD_RTOL (set from both devices' distances to float64, the card's
+# alone 2.3e-2)
+LM_B_CPU_DTYPES = ("float32",)
 # (c): decode at qwen3-8b's published size against its forward (a
 # 32-token prompt, batch 2), decode_32k (batch cut from 128 to 4: the cache
 # at 128 lanes would take 618 GB) and long_500k on (a)'s weights; prefill
@@ -3691,13 +3726,15 @@ def lm_rel(torch, a, b) -> float:
 
 def lm_card_vs_cpu(torch, name: str) -> dict:
     """(b) for one arch: at full width and ``LM_B_LAYERS`` layers, one
-    float64 run on the card, then in float32 and bfloat16 one run on the
-    CPU and two on the card (its spread) from the same weights, each with
-    one AdamW step from a fresh state.  Returns per dtype the losses,
-    gradient norms, and per leaf the norm-wise gaps card-CPU, card-card,
-    card-float64 and CPU-float64 of the gradients, and card-CPU of the
-    updated weights over the CPU's update (the largest of each).  The
-    comparisons run on the card, each host tensor crossing once."""
+    float64 run on the card, then in float32 and bfloat16 two runs on the
+    card (its spread) from the same weights and, in the dtypes of
+    ``LM_B_CPU_DTYPES``, one on the CPU and one AdamW step from a fresh
+    state from the card's gradients and one from the CPU's, both on the
+    card.  Returns per dtype the losses, gradient norms, and per leaf the
+    norm-wise gaps card-card and card-float64 (and card-CPU and
+    CPU-float64) of the gradients, and of the two steps' weights over the
+    CPU gradients' update (the largest of each).  The comparisons run on
+    the card, each host tensor crossing once."""
     import dataclasses
 
     from torch.linalg import vector_norm
@@ -3729,61 +3766,89 @@ def lm_card_vs_cpu(torch, name: str) -> dict:
     del card
     card = lm_model(torch, name, base, "cuda", state=state)
     cpu = lm_model(torch, name, base, "cpu", state=state)
-    params, params_h = named_params(card), named_params(cpu)
+    params = named_params(card)
     out = {"params": sum(v.numel() for v in state.values()),
            "card_bytes_before": held,
            "float64": {"loss": l64, "grad_norm": gn64}}
     for dt in ("float32", "bfloat16"):
         card.cfg = cpu.cfg = dataclasses.replace(base, compute_dtype=dt)
         t_g = time.perf_counter()
-        l_h, g_h = lm_grads(torch, cpu, batch)
-        gn_h = float(global_norm(g_h))
-        t_a = time.perf_counter()
-        adamw_update(params_h, g_h, adamw_init(params_h, opt_cfg), opt_cfg)
-        row = {"cpu_grads_s": t_a - t_g,
-               "cpu_adamw_s": time.perf_counter() - t_a}
         l_c, g_c = lm_grads(torch, card, batch)
         l_c2, g_c2 = lm_grads(torch, card, batch)
-        leaves = {k: {"card_card": lm_rel(torch, g_c2[k], g)}
+        leaves = {k: {"card_card": lm_rel(torch, g_c2[k], g),
+                      "card_f64": lm_rel(torch, g, truth[k])}
                   for k, g in g_c.items()}
         del g_c2
+        row = {"loss_card_again": l_c2, "leaves": leaves}
+        if dt not in LM_B_CPU_DTYPES:
+            row.update(loss=[l_c, None],
+                       grad_norm=[float(global_norm(g_c)), None],
+                       cpu_s=time.perf_counter() - t_g)
+            row["worst"] = {f: max((v[f], k) for k, v in leaves.items())
+                            for f in ("card_card", "card_f64")}
+            out[dt] = row
+            del g_c
+            continue
+        t_h = time.perf_counter()
+        l_h, g_h = lm_grads(torch, cpu, batch)
+        gn_h = float(global_norm(g_h))
+        row["cpu_grads_s"] = time.perf_counter() - t_h
+        g_hc = {}
         for k in list(g_h):
             g, t = g_h.pop(k).to("cuda"), truth[k].to("cuda")
             leaves[k].update(card_cpu=lm_rel(torch, g_c[k], g),
-                             card_f64=lm_rel(torch, g_c[k], t),
                              cpu_f64=lm_rel(torch, g, t))
+            g_hc[k] = g
         del g, t
         gn_c = float(global_norm(g_c))
+        # the CPU gradients' AdamW step, taken on the card (on the CPU an
+        # eager AdamW over these 6.6-10.5 GB of float32 leaves took 25-46 s
+        # a call, 143 s of the phase: the script's first cut, PERF.md §7),
+        # then the card gradients' step from the same weights
+        t_a = time.perf_counter()
+        adamw_update(params, g_hc, adamw_init(params, opt_cfg), opt_cfg)
+        del g_hc
+        got_h = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(state[k])
+        row["cpu_grads_adamw_s"] = time.perf_counter() - t_a
         adamw_update(params, g_c, adamw_init(params, opt_cfg), opt_cfg)
         del g_c
         with torch.no_grad():
-            for k, p in params_h.items():
-                start, got_h = state[k].to("cuda"), p.to("cuda")
+            for k, p in params.items():
+                start, want = state[k].to("cuda"), got_h.pop(k).to("cuda")
                 leaves[k]["adam_card_cpu"] = float(
-                    vector_norm(params[k] - got_h, dtype=torch.float64)
-                    / vector_norm(got_h - start, dtype=torch.float64)
+                    vector_norm(p - want, dtype=torch.float64)
+                    / vector_norm(want - start, dtype=torch.float64)
                     .clamp(min=1e-300))
                 # back to the weights both start from
-                params[k].copy_(start)
-                p.copy_(state[k])
-        del start, got_h
-        row.update(loss=[l_c, l_h], loss_card_again=l_c2,
-                   grad_norm=[gn_c, gn_h], leaves=leaves,
+                p.copy_(start)
+        del start, want
+        row.update(loss=[l_c, l_h], grad_norm=[gn_c, gn_h],
                    cpu_s=time.perf_counter() - t_g)
         row["worst"] = {f: max((v[f], k) for k, v in leaves.items())
                         for f in ("card_cpu", "card_card", "card_f64",
                                   "cpu_f64", "adam_card_cpu")}
         out[dt] = row
-    del card, cpu, params, params_h, state, truth
+    del card, cpu, params, state, truth
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
 def lm_check_b(name: str, got: dict) -> None:
     """(b)'s checks: loss, gradient norm, each gradient leaf norm-wise and
-    the AdamW step's weights, card against CPU, within ``LM_*``."""
+    the AdamW step's weights, card against CPU, within ``LM_*``; in a
+    dtype without a CPU run (``LM_B_CPU_DTYPES``) each gradient leaf
+    against the float64 run's."""
     for dt in ("float32", "bfloat16"):
         row = got[dt]
+        if dt not in LM_B_CPU_DTYPES:
+            for k, v in row["leaves"].items():
+                check(v["card_f64"] <= LM_GRAD_RTOL[dt],
+                      f"phase 10 (b) {name} {dt}: gradient {k} differs from "
+                      f"the float64 run's: {v}")
+            continue
         (l_c, l_h), (g_c, g_h) = row["loss"], row["grad_norm"]
         check(abs(l_c - l_h) <= LM_LOSS_RTOL[dt] * abs(l_h),
               f"phase 10 (b) {name} {dt}: loss {l_c} on the card, {l_h} on "
@@ -4002,7 +4067,7 @@ def lm_phase(torch, card: str):
     the checkpoint's step and a leaf read back), one step split into its
     parts and one under ``torch.profiler``, the model FLOPs; (b) qwen3-8b
     and minitron-8b at full width and 2 layers, card against CPU in float32
-    and bfloat16 (a float64 run on the card beside them); (c) qwen3-8b at
+    and against a float64 run on the card in bfloat16; (c) qwen3-8b at
     its published size, decode against forward, ``decode_32k`` at batch 4,
     then on (a)'s weights ``long_500k`` and ``prefill_32k``.  Returns
     ``(drive, finish)``."""
@@ -4163,7 +4228,7 @@ def lm_phase(torch, card: str):
             f"{ {dt: r['max_abs_of_max'] for dt, r in dvf.items()} }; "
             f"decode_32k {info['decode_32k']}")
 
-        # (b) full width, depth 2, card against CPU
+        # (b) full width, depth 2, card against CPU (float32) and float64
         info["card_vs_cpu"] = {}
         for name in LM_B_ARCHS:
             got_b = lm_card_vs_cpu(torch, name)
@@ -4171,9 +4236,11 @@ def lm_phase(torch, card: str):
             log(f"phase 10 (b) {card}: {name}: " + "; ".join(
                 f"{dt} loss {got_b[dt]['loss']} grad norm "
                 f"{got_b[dt]['grad_norm']} worst {got_b[dt]['worst']} "
-                f"({got_b[dt]['cpu_s']:.1f} s; the CPU's gradients "
-                f"{got_b[dt]['cpu_grads_s']:.1f} s, AdamW "
-                f"{got_b[dt]['cpu_adamw_s']:.1f} s)"
+                f"({got_b[dt]['cpu_s']:.1f} s; "
+                + (f"the CPU's gradients {got_b[dt]['cpu_grads_s']:.1f} s, "
+                   f"their AdamW step on the card "
+                   f"{got_b[dt]['cpu_grads_adamw_s']:.1f} s)"
+                   if dt in LM_B_CPU_DTYPES else "no CPU run)")
                 for dt in ("float32", "bfloat16")))
             lm_check_b(name, got_b)
             gc.collect()
@@ -4220,6 +4287,13 @@ MOE_PREFILL_PROBES = (1024, 2048, 3072)
 MOE_B_LAYERS = {MOE_A_ARCH: 2, MOE_C_ARCH: 1}
 MOE_B_BATCH = 2
 MOE_B_SEQ = 64
+# the dtypes whose gradients also run on the CPU: the bfloat16 CPU run
+# (26.7 s DeepSeek, 29.5 s DBRX on the H100's host) is cut for the
+# script's time limit, when phase 13 grew.  In bfloat16 the card's two
+# runs are still held bit-equal, and its gradients to the float64 run's,
+# each leaf within MOE_GRAD_RTOL / MOE_EXPERT_GRAD_RTOL (set from both
+# devices' distances to float64, the card's alone 0.088 and 0.158)
+MOE_B_CPU_DTYPES = ("float32",)
 MOE_TRUTH_PASS_BYTES = 16e9
 # (d): each arch's smoke preset through launch.train.main
 MOE_TRAIN_STEPS = 3
@@ -4490,8 +4564,8 @@ def moe_digest(torch, g) -> tuple[int, int]:
 def moe_card_vs_cpu(torch, name: str) -> dict:
     """(b) for one arch at full width and ``MOE_B_LAYERS[name]`` layers:
     the float64 truth on the card (``moe_truth``), then in float32 and in
-    bfloat16 one run on the CPU and two on the card from the same
-    weights.  Per dtype: the losses (with aux), the gradient norms,
+    bfloat16 two runs on the card and (dtypes of ``MOE_B_CPU_DTYPES``)
+    one on the CPU from the same weights.  Per dtype: the losses (with aux), the gradient norms,
     whether the two card runs are equal bit for bit (leaf digests,
     ``moe_digest``), and per leaf the norm-wise gaps card-CPU,
     card-float64 and CPU-float64 (the largest of each).  The comparisons
@@ -4520,20 +4594,24 @@ def moe_card_vs_cpu(torch, name: str) -> dict:
                        "s": time.perf_counter() - t0}}
     for dt in ("float32", "bfloat16"):
         card.cfg = cpu.cfg = dataclasses.replace(base, compute_dtype=dt)
+        on_cpu = dt in MOE_B_CPU_DTYPES
         t_h = time.perf_counter()
-        l_h, g_h = lm_grads(torch, cpu, batch)
-        gn_h = float(global_norm(g_h))
+        l_h, g_h = lm_grads(torch, cpu, batch) if on_cpu else (None, {})
+        gn_h = float(global_norm(g_h)) if on_cpu else None
         t_c = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         l_c, g_c = lm_grads(torch, card, batch)
         digests = {k: moe_digest(torch, g) for k, g in g_c.items()}
         leaves = {k: {} for k in g_c}
-        for k in list(g_h):
-            g, tr = g_h.pop(k).to("cuda"), truth[k].to("cuda")
-            leaves[k].update(card_cpu=lm_rel(torch, g_c[k], g),
-                             card_f64=lm_rel(torch, g_c[k], tr),
-                             cpu_f64=lm_rel(torch, g, tr))
-        del g, tr
+        for k in list(g_c):
+            tr = truth[k].to("cuda")
+            leaves[k]["card_f64"] = lm_rel(torch, g_c[k], tr)
+            if on_cpu:
+                g = g_h.pop(k).to("cuda")
+                leaves[k].update(card_cpu=lm_rel(torch, g_c[k], g),
+                                 cpu_f64=lm_rel(torch, g, tr))
+                del g
+            del tr
         gn_c = float(global_norm(g_c))
         del g_c
         l_c2, g_c2 = lm_grads(torch, card, batch)
@@ -4544,11 +4622,13 @@ def moe_card_vs_cpu(torch, name: str) -> dict:
                "grad_norm": [gn_c, gn_h],
                "card_bit_equal": l_c == l_c2 and not differ,
                "card_leaves_differ": differ,
-               "leaves": leaves, "cpu_grads_s": t_c - t_h,
+               "leaves": leaves,
+               "cpu_grads_s": t_c - t_h if on_cpu else None,
                "card_s": time.perf_counter() - t_c,
                "card_peak_bytes": torch.cuda.max_memory_allocated() - held}
         row["worst"] = {f: max((v[f], k) for k, v in leaves.items())
-                        for f in ("card_cpu", "card_f64", "cpu_f64")}
+                        for f in (("card_cpu", "card_f64", "cpu_f64")
+                                  if on_cpu else ("card_f64",))}
         out[dt] = row
     del card, cpu, truth
     out["seconds"] = time.perf_counter() - t0
@@ -4558,8 +4638,9 @@ def moe_card_vs_cpu(torch, name: str) -> dict:
 def moe_check_b(name: str, got: dict) -> None:
     """(b)'s checks: the two card runs equal bit for bit (the MoE
     dispatch and combine are deterministic), and the loss, gradient norm
-    and each gradient leaf norm-wise, card against CPU, within
-    ``MOE_*``."""
+    and each gradient leaf norm-wise, card against CPU, within ``MOE_*``;
+    in a dtype without a CPU run (``MOE_B_CPU_DTYPES``) each gradient leaf
+    against the float64 run's."""
     for dt in ("float32", "bfloat16"):
         row = got[dt]
         (l_c, l_h), (g_c, g_h) = row["loss"], row["grad_norm"]
@@ -4567,6 +4648,14 @@ def moe_check_b(name: str, got: dict) -> None:
               f"phase 11 (b) {name} {dt}: two card runs differ: loss "
               f"{l_c} and {row['loss_card_again']}, leaves "
               f"{row['card_leaves_differ']}")
+        if dt not in MOE_B_CPU_DTYPES:
+            for k, v in row["leaves"].items():
+                tol = (MOE_EXPERT_GRAD_RTOL if k.endswith(MOE_EXPERT_LEAVES)
+                       else MOE_GRAD_RTOL)[dt]
+                check(v["card_f64"] <= tol,
+                      f"phase 11 (b) {name} {dt}: gradient {k} differs from "
+                      f"the float64 run's by more than {tol}: {v}")
+            continue
         check(abs(l_c - l_h) <= MOE_LOSS_RTOL[dt] * abs(l_h),
               f"phase 11 (b) {name} {dt}: loss {l_c} on the card, {l_h} on "
               f"the CPU")
@@ -4613,8 +4702,8 @@ def moe_phase(torch, card: str):
     and (d) (``final step=3`` printed, finite losses, every leaf moved,
     the router included), the cache bytes a token and layer, and (b)
     DeepSeek at depth 2 and DBRX at depth 1, batch 2 x 64, card against
-    CPU in float32 and bfloat16 beside a float64 run on the card, and two
-    card runs equal bit for bit.  Returns ``(drive, finish)``."""
+    CPU in float32 (``MOE_B_CPU_DTYPES``) and against a float64 run on
+    the card in bfloat16, and in both two card runs equal bit for bit.  Returns ``(drive, finish)``."""
     import gc
     import shutil
     import tempfile
@@ -4709,8 +4798,10 @@ def moe_phase(torch, card: str):
                     f"{dt} loss {got_b[dt]['loss']} grad norm "
                     f"{got_b[dt]['grad_norm']} card runs bit-equal "
                     f"{got_b[dt]['card_bit_equal']} worst "
-                    f"{got_b[dt]['worst']} (CPU {got_b[dt]['cpu_grads_s']:.1f}"
-                    f" s, card {got_b[dt]['card_s']:.1f} s, card peak "
+                    f"{got_b[dt]['worst']} (CPU "
+                    + (f"{got_b[dt]['cpu_grads_s']:.1f} s"
+                       if dt in MOE_B_CPU_DTYPES else "cut")
+                    + f", card {got_b[dt]['card_s']:.1f} s, card peak "
                     f"{got_b[dt]['card_peak_bytes']} B)"
                     for dt in ("float32", "bfloat16"))
                 + f"; host available {got_b['host_available_bytes']} B; "
@@ -5153,6 +5244,514 @@ def gnn_phase(torch, card: str):
     return drive, finish
 
 
+# -------------------------------------------------- phase 13: sharded train
+
+# (a): one NCCL rank, mesh (data, model) = (1, 1): each GNN's explicit-SPMD
+# step at its published widths, at minibatch_lg (GCN at full_graph_sm,
+# phase 9 (d)'s cell), against the unsharded step on the card
+ST_A_CELLS = (("gcn-cora", "full_graph_sm"), ("pna", "minibatch_lg"),
+              ("meshgraphnet", "minibatch_lg"), ("dimenet", "minibatch_lg"),
+              ("dimenet-v2", "minibatch_lg"))
+# (b): two gloo ranks sharing the card, mesh (1, 2), at the molecule cell,
+# after (a) and (c)
+ST_B_CELLS = tuple((n, "molecule") for n in ("gcn-cora", "pna",
+                                              "meshgraphnet", "dimenet",
+                                              "dimenet-v2"))
+ST_B_RANKS = 2
+# the reference's SPMD limits (tests/test_distributed.py): the largest
+# relative leaf norm of the gradient difference, 1e-3 for PNA (its std
+# aggregator cancels); DimeNet v2's loss within 1e-5, here relative (its
+# loss is 3.2e11 at minibatch_lg) and for every arch.  The GNN steps of
+# (a) and (b) run with torch's deterministic algorithms (``index_add_``
+# sorted, not float atomics): with atomics two plain DimeNet losses at
+# minibatch_lg lay 2.3e-6-1.1e-5 apart and the SPMD one 1.3e-5 from the
+# plain one (H100, PERF.md §6), the limit's size, so atomics would
+# hide what the comparison is for.  ``spread_rel`` records a second plain
+# loss's distance all the same
+
+ST_GRAD_REL = {"pna": 1e-3}
+ST_GRAD_REL_DEFAULT = 1e-4
+ST_LOSS_REL = 1e-5
+# the LM: qwen2-1.5b at its published widths, depth 2, at phase 10's 4 x
+# 4096; the DP+TP step within the reference's DP+TP limits of the
+# single-device step (loss 1e-3, every parameter within rtol / atol 2e-3
+# after one AdamW step at lr 1e-3).  Those limits pass whatever the
+# gradient (the first AdamW step moves each element by about lr, 1e-3),
+# so its gradients are held too, each leaf within ST_LM_GRAD_REL of the
+# plain ones by norm, and its update within LM_ADAM_RTOL["bfloat16"]
+# (0.5) of the plain update by norm (a zero gradient is 1 off, a flipped
+# sign 2)
+ST_LM_LAYERS = 2
+# (b) runs no DP+TP step: its DTensors gather with functional collectives
+# (all_gather_into_tensor), and gloo on CUDA tensors crashed the rank
+# there with a segmentation fault (torch 2.11, H100, PERF.md §6) rather
+# than refusing; the 4-rank DP+TP step runs in the CPU tests
+ST_B_NO_LM = ("gloo's functional all-gather on CUDA tensors crashed the "
+              "rank (SIGSEGV, torch 2.11); the DP+TP step on several "
+              "ranks runs in tests/test_torch_sharding.py on the CPU")
+ST_LM_C = (LM_BATCH, LM_SEQ)
+ST_LM_OPT = dict(lr=1e-3, warmup_steps=1)
+ST_LM_LOSS = 1e-3
+ST_LM_PARAM = 2e-3
+# (c)'s pipeline: one stage, 2 microbatches, in the compute dtype
+# (bfloat16): the loss within 2e-3 (the reference's pipeline limit); its
+# gradient leaves, and the DP+TP step's, within 2e-2 of their norm (bf16
+# products summed in another order)
+ST_PIPE_LOSS = 2e-3
+ST_LM_GRAD_REL = 2e-2
+ST_SEED = 13
+# the times of (a) and (c): the first call, then the median and range of
+# ST_WARM warm passes (plain and sharded in turn); (b) runs after them, so
+# no time of (a) or (c) shares the card with its ranks
+ST_WARM = 3
+
+
+def st_lm_batch(torch, cfg, shape, device):
+    g = torch.Generator().manual_seed(ST_SEED)
+    return {k: torch.randint(0, cfg.vocab, shape, generator=g,
+                             dtype=torch.int32).to(device)
+            for k in ("tokens", "labels")}
+
+
+def st_param_excess(torch, got: dict, want: dict) -> float:
+    """The largest ``|got - want| - (atol + rtol·|want|)`` over every
+    element at ``ST_LM_PARAM`` (<= 0 within the limit)."""
+    worst = -float("inf")
+    for k, w in want.items():
+        g = got[k].to(w.device, w.dtype)
+        worst = max(worst, float(torch.max(
+            (g - w).abs() - (ST_LM_PARAM + ST_LM_PARAM * w.abs()))))
+    return worst
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms on (warnings only where an op has
+    none), restored after."""
+    import warnings
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def st_gnn(torch, mesh, name: str, cell: str, profile: bool,
+           warm: int = 0) -> dict:
+    """One GNN's explicit-SPMD step on this rank against the unsharded
+    step on the card, from the same weights (``GNN_SEED``), both under
+    :func:`deterministic`: the loss, every gradient leaf, the AdamW step,
+    each step's time (the first, then ``warm`` more passes) and peak
+    memory, and (``profile``) the collectives the SPMD gradients ran."""
+    with deterministic(torch):
+        return _st_gnn(torch, mesh, name, cell, profile, warm)
+
+
+def _st_gnn(torch, mesh, name: str, cell: str, profile: bool,
+            warm: int) -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.sharding import gnn_spmd
+    from repro_torch.train.optimizer import adamw_init, adamw_update
+    from repro_torch.train.trainstep import (batch_to, named_params,
+                                             value_and_grad)
+
+    v2 = name == "dimenet-v2"
+    arch_name = "dimenet" if v2 else name
+    arch = get_arch(arch_name)
+    cfg = arch.config_for(cell)
+    batch = gnn_cell_batch(torch, arch, cell, GNN_SEED)
+    model = lm_model(torch, arch_name, cfg, "cuda", seed=GNN_SEED)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = named_params(model)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    out = {"cell": cell, "params": sum(p.numel() for p in params.values())}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev[0].record()
+        r = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return r, ev[0].elapsed_time(ev[1]), \
+            torch.cuda.max_memory_allocated() - base
+
+    # both steps take their batch on the card and a fresh AdamW state
+    # made outside the timed span
+    bp = batch_to(batch, "cuda")
+
+    def plain(state):
+        loss, grads = value_and_grad(arch.loss_fn, model, bp)
+        adamw_update(params, grads, state, gnn_opt())
+        return loss, grads
+
+    state = adamw_init(params, gnn_opt())
+    (loss0, g0), out["plain_ms"], out["plain_peak_bytes"] = timed(
+        lambda: plain(state))
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(start)
+    with torch.no_grad():  # the card's own spread: a second plain loss
+        again = float(arch.loss_fn(model, bp))
+    n_seg = batch["edge_src"].shape[0] if arch_name == "dimenet" \
+        else batch["x"].shape[0]
+    pb = (gnn_spmd.edge_shard_triplets(batch, gnn_spmd.n_shards_of(mesh))
+          if v2 else gnn_spmd.pad_gnn_batch(arch_name, batch,
+                                            gnn_spmd.n_shards_of(mesh),
+                                            n_seg))
+    bs = batch_to(pb, "cuda")
+    step, spmd_cfg = gnn_spmd.make_spmd_train_step(
+        arch_name, model, cfg, gnn_opt(), mesh, edge_sharded=v2)
+    fields = gnn_spmd.sharded_fields(arch_name, edge_sharded=v2)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as pr:
+            loss1, g1 = gnn_spmd.spmd_value_and_grad(
+                arch.loss_fn, model, bs, mesh, fields)
+            torch.cuda.synchronize()
+        comms = Counter()
+        for e in pr.events():
+            if e.name == "record_param_comms" or "nccl" in e.name.lower():
+                comms[e.name] += 1
+        out["comm_events"] = dict(comms)
+    else:
+        loss1, g1 = gnn_spmd.spmd_value_and_grad(
+            arch.loss_fn, model, bs, mesh, fields)
+    model.load_state_dict(start)
+    state = adamw_init(params, gnn_opt())
+    (_, _, metrics), out["spmd_ms"], out["spmd_peak_bytes"] = timed(
+        lambda: step(model, state, bs))
+    out["loss"] = float(loss0)
+    out["spmd_loss"] = float(loss1)
+    out["step_loss"] = float(metrics["loss"])
+    out["loss_rel"] = abs(out["spmd_loss"] - out["loss"]) / max(
+        abs(out["loss"]), 1e-30)
+    out["spread_rel"] = abs(again - out["loss"]) / max(abs(out["loss"]),
+                                                       1e-30)
+    out["grad_rel"] = max(float((g1[k] - g).norm()) / max(
+        float(g.norm()), 1e-30) for k, g in g0.items())
+    out["adam_rel"] = max(
+        float((model.state_dict()[k] - p0[k]).norm()) / max(
+            float((p0[k] - start[k]).norm()), 1e-30) for k in p0)
+    out["grad_rel_limit"] = ST_GRAD_REL.get(arch_name, ST_GRAD_REL_DEFAULT)
+    # the warm times: the plain step and the SPMD step in turn (the
+    # weights drift by a step each; the times do not depend on them)
+    out["plain_warm_ms"], out["spmd_warm_ms"] = [], []
+    for _ in range(warm):
+        for key, c, fn in (("plain_warm_ms", cfg, plain),
+                           ("spmd_warm_ms", spmd_cfg,
+                            lambda s: step(model, s, bs))):
+            model.cfg = c
+            state = adamw_init(params, gnn_opt())
+            out[key].append(timed(lambda: fn(state))[1])
+    return out
+
+
+def st_gnn_check(what: str, name: str, row: dict) -> None:
+    check(row["grad_rel"] <= row["grad_rel_limit"],
+          f"{what} {name}/{row['cell']}: SPMD gradients {row['grad_rel']} "
+          f"from the unsharded step's (limit {row['grad_rel_limit']})")
+    check(row["loss_rel"] <= ST_LOSS_REL,
+          f"{what} {name}/{row['cell']}: SPMD loss {row['spmd_loss']} "
+          f"against {row['loss']}")
+    check(abs(row["step_loss"] - row["spmd_loss"]) <= ST_LOSS_REL * abs(
+        row["spmd_loss"]), f"{what} {name}: the step's loss "
+                           f"{row['step_loss']} against {row['spmd_loss']}")
+    check(row["adam_rel"] <= GNN_ADAM_RTOL,
+          f"{what} {name}/{row['cell']}: SPMD AdamW step {row['adam_rel']} "
+          f"of the update's norm from the unsharded one")
+
+
+def st_warm(ms: list) -> str:
+    """The median (range) of warm times, in ms."""
+    return (f"{float(np.median(ms)):.2f} ({min(ms):.2f}-{max(ms):.2f})")
+
+
+def st_host_timed(torch, fn):
+    """``(fn(), host ms to a device sync, peak bytes above the start)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return (r, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def st_lm_dp_tp(torch, mesh, shape) -> dict:
+    """qwen2-1.5b at depth ``ST_LM_LAYERS``: the plain step (its gradients,
+    then AdamW), then from the same weights the DP+TP step
+    (``sharding.lm``: DTensor parameters, moments and batch placed by the
+    specs): the losses, each gradient leaf's distance from the plain one
+    (the DP+TP gradients taken first, on the starting weights), the
+    worst parameter's excess over ``ST_LM_PARAM``, the AdamW update's
+    distance by norm a leaf, the times (the first call, then ``ST_WARM``
+    warm passes) and peaks."""
+    import dataclasses
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.sharding import lm
+    from repro_torch.sharding.specs import full
+    from repro_torch.train.optimizer import (OptConfig, adamw_init,
+                                             adamw_update)
+    from repro_torch.train.trainstep import named_params, value_and_grad
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config,
+                              n_layers=ST_LM_LAYERS)
+    opt = OptConfig(**ST_LM_OPT)
+    batch = st_lm_batch(torch, cfg, shape, "cuda")
+    model = lm_model(torch, LM_ARCH, cfg, "cuda", seed=ST_SEED)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = named_params(model)
+    out = {"batch": list(shape), "layers": ST_LM_LAYERS,
+           "params": sum(p.numel() for p in model.parameters())}
+
+    def plain(state):
+        loss, grads = value_and_grad(transformer.loss_fn, model, batch)
+        adamw_update(params, grads, state, opt)
+        return loss, grads
+
+    state = adamw_init(params, opt)
+    (loss0, g0), out["plain_ms"], out["plain_peak_bytes"] = st_host_timed(
+        torch, lambda: plain(state))
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    moved = {k: float((p0[k] - start[k]).norm()) for k in p0}
+    out["plain_warm_ms"] = [st_host_timed(torch, lambda: plain(state))[1]
+                            for _ in range(ST_WARM)]
+    del state
+    model.load_state_dict(start)
+    del start
+    specs = lm.shard_module(model, mesh)
+    state = lm.shard_opt_state(adamw_init(
+        {k: full(p) for k, p in model.named_parameters()}, opt), specs, mesh)
+    dstep = lm.make_dp_tp_train_step(transformer.loss_fn, model, opt)
+    sb = lm.shard_batch(batch, mesh)
+    with implicit_replication():
+        _, g1 = value_and_grad(transformer.loss_fn, model, sb)
+    out["grad_rel"] = max(lm_rel(torch, full(g1.pop(k)), g) for k, g in
+                          g0.items())
+    del g0, g1
+    (_, _, m1), out["dp_tp_ms"], out["dp_tp_peak_bytes"] = st_host_timed(
+        torch, lambda: dstep(model, state, sb))
+    p1 = {k: full(p).detach() for k, p in model.named_parameters()}
+    out["loss"] = float(loss0)
+    out["dp_tp_loss"] = float(full(m1["loss"]))
+    out["param_excess"] = st_param_excess(torch, p1, p0)
+    out["update_rel"] = max(float((p1[k] - p0[k]).norm()) / max(
+        moved[k], 1e-30) for k in p0)
+    del p0, p1
+    out["dp_tp_warm_ms"] = [
+        st_host_timed(torch, lambda: dstep(model, state, sb))[1]
+        for _ in range(ST_WARM)]
+    out["sharded_leaves"] = sum(1 for sp in specs.values() if any(sp))
+    return out
+
+
+def st_lm_check(what: str, row: dict) -> None:
+    check(abs(row["dp_tp_loss"] - row["loss"]) <= ST_LM_LOSS,
+          f"{what}: DP+TP loss {row['dp_tp_loss']} against the plain "
+          f"step's {row['loss']}")
+    check(row["grad_rel"] <= ST_LM_GRAD_REL,
+          f"{what}: DP+TP gradients {row['grad_rel']} from the plain ones")
+    check(row["param_excess"] <= 0.0,
+          f"{what}: a parameter after the DP+TP step lies "
+          f"{row['param_excess']} past rtol / atol {ST_LM_PARAM}")
+    check(row["update_rel"] <= LM_ADAM_RTOL["bfloat16"],
+          f"{what}: the DP+TP step's update {row['update_rel']} of its "
+          f"norm from the plain one")
+
+
+def st_pipeline(torch, shape) -> dict:
+    """``pipelined_loss`` with one stage of ``("pod",)`` and 2
+    microbatches against the plain loss and gradients of the same weights
+    on the card; each timed cold, then ``ST_WARM`` warm passes."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.sharding.comm import mesh_scope
+    from repro_torch.sharding.pipeline import pipelined_loss
+    from repro_torch.train.trainstep import named_params, value_and_grad
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config,
+                              n_layers=ST_LM_LAYERS)
+    batch = st_lm_batch(torch, cfg, shape, "cuda")
+    model = lm_model(torch, LM_ARCH, cfg, "cuda", seed=ST_SEED)
+    params = named_params(model)
+    pod = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+
+    def plain():
+        return value_and_grad(transformer.loss_fn, model, batch)
+
+    def piped():
+        with mesh_scope(pod):
+            loss = pipelined_loss(model, batch, cfg, n_stages=1,
+                                  n_microbatches=2)
+            return loss.detach(), torch.autograd.grad(
+                loss, list(params.values()), materialize_grads=True,
+                allow_unused=True)
+
+    (loss0, g0), plain_ms, _ = st_host_timed(torch, plain)
+    (loss1, g1), pipe_ms, _ = st_host_timed(torch, piped)
+    out = {"batch": list(shape), "microbatches": 2, "stages": 1,
+           "loss": float(loss0), "pipe_loss": float(loss1),
+           "grad_rel": max(lm_rel(torch, g, g0[k])
+                           for k, g in zip(params, g1)),
+           "plain_ms": plain_ms, "pipe_ms": pipe_ms,
+           "plain_warm_ms": [], "pipe_warm_ms": []}
+    del g0, g1
+    for _ in range(ST_WARM):
+        out["plain_warm_ms"].append(st_host_timed(torch, plain)[1])
+        out["pipe_warm_ms"].append(st_host_timed(torch, piped)[1])
+    return out
+
+
+def sharded_train_rank(rank: int, world: int, device: str,
+                       inputs: dict) -> dict:
+    """(b)'s rank: ``ST_B_RANKS`` gloo ranks share the card, mesh (data,
+    model) = (1, ``world``); each GNN's SPMD step at ``molecule``, held in
+    the rank against the unsharded step on the card (numbers returned).
+    The DP+TP step does not run here: ``ST_B_NO_LM``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh(device, (1, world),
+                            mesh_dim_names=("data", "model"))
+    out = {"gnn": {}}
+    for name, cell in ST_B_CELLS:
+        out["gnn"][name] = st_gnn(torch, mesh, name, cell, profile=False)
+    return out
+
+
+def sharded_train_phase(torch, card: str):
+    """Phase 13: sharded training.  ``drive``, the launch window's whole
+    content, one part after the other so that no part's times share the
+    card: (a) one NCCL rank, mesh (1, 1): each GNN's SPMD step of
+    ``ST_A_CELLS`` (``st_gnn``, its collectives counted with the
+    profiler); (c) the DP+TP step of qwen2-1.5b at depth 2 and phase 10's
+    batch (``st_lm_dp_tp``) and ``pipelined_loss`` with one stage
+    (``st_pipeline``), each against the plain step on the card; (b)
+    ``ST_B_RANKS`` gloo ranks sharing the card (``sharded_train_rank``).
+    ``finish(out, launches)``, after the window: every limit.  Returns
+    ``(drive, finish)``."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.sharded import free_port, spawn_world
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+
+    def drive():
+        t0 = time.perf_counter()
+        out = {"held_before_phase": held, "a": {}}
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://127.0.0.1:{free_port()}",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            for name, cell in ST_A_CELLS:
+                gc.collect()
+                torch.cuda.empty_cache()
+                t = time.perf_counter()
+                out["a"][name] = st_gnn(torch, mesh, name, cell,
+                                        profile=True, warm=ST_WARM)
+                out["a"][name]["wall_s"] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            out["c"] = {"dp_tp": st_lm_dp_tp(torch, mesh, ST_LM_C)}
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["c"]["pipeline"] = st_pipeline(torch, ST_LM_C)
+            out["c"]["wall_s"] = time.perf_counter() - t
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["b"] = {"ranks": spawn_world(sharded_train_rank, ST_B_RANKS, {},
+                                         "cuda", backend="gloo",
+                                         timeout=600)}
+        out["b"]["wall_s"] = time.perf_counter() - t
+        out["drive_s"] = time.perf_counter() - t0
+        return out
+
+    def finish(got: dict, launched: dict) -> dict:
+        info = {"card": card, "launches": launched, **got}
+        for name, row in got["a"].items():
+            st_gnn_check("phase 13 (a)", name, row)
+            check(sum(row["comm_events"].values()) > 0,
+                  f"phase 13 (a) {name}: the profiler saw no collective")
+            log(f"phase 13 (a) {card}: {name}/{row['cell']} one NCCL rank: "
+                f"loss {row['spmd_loss']} (unsharded {row['loss']}), "
+                f"gradients within {row['grad_rel']:.3g}, AdamW step "
+                f"within {row['adam_rel']:.3g} of its norm; step ms cold "
+                f"{row['spmd_ms']:.2f}, warm {st_warm(row['spmd_warm_ms'])}"
+                f" (unsharded {row['plain_ms']:.2f}, "
+                f"{st_warm(row['plain_warm_ms'])}), peak "
+                f"{row['spmd_peak_bytes']} B (unsharded "
+                f"{row['plain_peak_bytes']} B); collectives "
+                f"{row['comm_events']}")
+        c = got["c"]
+        st_lm_check("phase 13 (c)", c["dp_tp"])
+        pipe = c["pipeline"]
+        check(abs(pipe["pipe_loss"] - pipe["loss"]) <= ST_PIPE_LOSS,
+              f"phase 13 (c): pipelined loss {pipe['pipe_loss']} against "
+              f"{pipe['loss']}")
+        check(pipe["grad_rel"] <= ST_LM_GRAD_REL,
+              f"phase 13 (c): pipelined gradients {pipe['grad_rel']} from "
+              f"the plain ones")
+        d = c["dp_tp"]
+        log(f"phase 13 (c) {card}: qwen2-1.5b depth {ST_LM_LAYERS} at "
+            f"{ST_LM_C}, one NCCL rank: DP+TP loss {d['dp_tp_loss']} "
+            f"(plain {d['loss']}), gradients within {d['grad_rel']:.3g}, "
+            f"worst parameter {d['param_excess']:.3g} inside its limit, "
+            f"update within {d['update_rel']:.3g} of its norm; step ms "
+            f"first {d['dp_tp_ms']:.1f}, warm {st_warm(d['dp_tp_warm_ms'])}"
+            f" (plain {d['plain_ms']:.1f}, {st_warm(d['plain_warm_ms'])}), "
+            f"peak {d['dp_tp_peak_bytes']} B (plain "
+            f"{d['plain_peak_bytes']} B); pipeline (1 stage, 2 "
+            f"microbatches) loss {pipe['pipe_loss']} (plain "
+            f"{pipe['loss']}), gradients within {pipe['grad_rel']:.3g}, "
+            f"forward + backward ms cold {pipe['pipe_ms']:.1f}, warm "
+            f"{st_warm(pipe['pipe_warm_ms'])} (plain {pipe['plain_ms']:.1f}"
+            f", {st_warm(pipe['plain_warm_ms'])})")
+        for o in got["b"]["ranks"]:
+            for name, row in o["gnn"].items():
+                st_gnn_check(f"phase 13 (b) rank {o['rank']}", name, row)
+        b0 = got["b"]["ranks"][0]
+        log(f"phase 13 (b) {card}: {ST_B_RANKS} gloo ranks share the card "
+            f"(mesh (1, {ST_B_RANKS})); this verifies nothing multi-card; "
+            + "; ".join(f"{n} grads within {r['grad_rel']:.3g}"
+                        for n, r in b0["gnn"].items())
+            + f"; {got['b']['wall_s']:.1f} s; the DP+TP step did not run on "
+            f"the card here: {ST_B_NO_LM}")
+        return info
+
+    return drive, finish
+
+
 def held_bytes(torch, label: str) -> dict:
     """The device memory still allocated (after a collection and with the
     allocator's cache emptied), logged under ``label``."""
@@ -5312,6 +5911,14 @@ def main(argv=None) -> int:
     del drive, finish
     log(f"phase 12: {gnn['phase_s']:.1f} s")
     held.append(held_bytes(torch, "after phase 12"))
+    t_st = time.perf_counter()
+    drive, finish = sharded_train_phase(torch, card)
+    sharded_train = finish(window("sharded_train", drive, recorder=None),
+                           by_path["sharded_train"])
+    sharded_train["phase_s"] = time.perf_counter() - t_st
+    del drive, finish
+    log(f"phase 13: {sharded_train['phase_s']:.1f} s")
+    held.append(held_bytes(torch, "after phase 13"))
 
     fill_launches(table, by_path)
     report = {"card": card, "torch": torch.__version__,
@@ -5319,7 +5926,7 @@ def main(argv=None) -> int:
               "ptxas": ptxas, "parity": parity, "full": full,
               "params": params, "live": live, "serve": serve,
               "sharded": sharded, "zoo": zoo, "lm": lm, "moe": moe,
-              "gnn": gnn,
+              "gnn": gnn, "sharded_train": sharded_train,
               "held": held, "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}

@@ -6,28 +6,30 @@ Aggregation is a scatter over an edge index, on ``index_add_`` and
 ones too) where torch would raise, so every scatter here drops exactly
 those entries first; and a gather by an edge index wraps a negative id
 once and clamps into ``[0, n-1]``, as JAX's indexing does, passing no
-gradient back from a clamped id (:func:`take`).  The explicit-SPMD
-variants (``*_spmd``) come with the sharding slice (ROADMAP Queue 1 item
-3): a config with ``spmd_axes`` set is refused by :func:`no_spmd`.
+gradient back from a clamped id (:func:`take`).
+
+The explicit-SPMD variants (``*_spmd``, the reference's "shard_map"
+profile) aggregate this rank's shard of the edges locally and combine
+the ranks of the mesh axes ``axes`` with the collectives of
+``sharding.comm`` (the mesh is the one :func:`~repro_torch.sharding.comm.
+mesh_scope` set).  They take the collective path whenever ``axes`` is
+set, one rank included; with no axes they are the plain aggregations.
+
+Gradient convention, as inside ``shard_map``: the all-reduce transposes
+to an all-reduce, so a cotangent that crosses one of these aggregations
+is summed over the ranks, and the ``pmean`` of the per-rank parameter
+gradients afterwards (``sharding.gnn_spmd``) is the global gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.comm import pmax, psum
+
 # a config's ``compute_dtype`` (float64 for runs against a float64 truth)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
-
-
-def no_spmd(cfg) -> None:
-    """Raise for a config that asks for explicit-SPMD aggregation, which
-    the port does not have yet."""
-    if getattr(cfg, "spmd_axes", ()):
-        raise NotImplementedError(
-            f"{cfg.name}: spmd_axes={cfg.spmd_axes!r} needs the sharded GNN "
-            f"aggregations, which come with the sharding slice (ROADMAP "
-            f"Queue 1 item 3)")
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -112,3 +114,66 @@ def segment_softmax_norm(scores, seg, n):
 def degrees(seg, n, dtype=torch.float32):
     return segment_sum(torch.ones(seg.shape[0], dtype=dtype,
                                   device=seg.device), seg, n)
+
+
+# --------------------------------------------------------------------------
+# Explicit-SPMD variants: the local aggregation of this rank's edges, then
+# the ranks of ``axes`` combined (the group of those mesh axes: its size is
+# the shard count).  With no axes each is the plain aggregation.
+# --------------------------------------------------------------------------
+
+
+def segment_sum_spmd(x, seg, n, axes):
+    """Local scatter-add over this shard's edges + cross-shard psum."""
+    if not axes:
+        return segment_sum(x, seg, n)
+    return psum(segment_sum(x, seg, n), axes)
+
+
+def segment_max_spmd(x, seg, n, axes):
+    """Cross-shard segment max, expressed through a masked psum so the
+    backward pass uses the same collective transpose as the sum
+    aggregators.  Empty segments: local counts guard the -inf identity
+    with a -3.0e38 sentinel; globally empty segments restore -inf so
+    downstream ``nan_to_num`` treats both paths identically.  Cross-shard
+    value ties share the gradient equally."""
+    if not axes:
+        return segment_max(x, seg, n)
+    local = segment_max(x, seg, n)
+    cnt_l = segment_sum(torch.ones(seg.shape[0], dtype=local.dtype,
+                                   device=local.device), seg, n)
+    while cnt_l.dim() < local.dim():
+        cnt_l = cnt_l[..., None]
+    local_f = torch.where(cnt_l > 0, local,
+                          torch.tensor(-3.0e38, dtype=local.dtype,
+                                       device=local.device))
+    m = pmax(local_f, axes)
+    mask = ((local_f.detach() == m) & (cnt_l > 0)).to(local.dtype)
+    ties = psum(mask, axes)
+    out = psum(local_f * mask, axes) / torch.clamp(ties, min=1.0)
+    cnt_g = psum(torch.clamp(cnt_l, max=1.0), axes)
+    return torch.where(cnt_g > 0, out, -torch.inf)
+
+
+def segment_min_spmd(x, seg, n, axes):
+    if not axes:
+        return segment_min(x, seg, n)
+    return -segment_max_spmd(-x, seg, n, axes)
+
+
+def segment_mean_spmd(x, seg, n, axes):
+    s = segment_sum_spmd(x, seg, n, axes)
+    cnt = segment_sum_spmd(torch.ones((x.shape[0], 1), dtype=x.dtype,
+                                      device=x.device), seg, n, axes)
+    return s / torch.clamp(cnt, min=1.0)
+
+
+def segment_std_spmd(x, seg, n, axes, eps: float = 1e-5):
+    mu = segment_mean_spmd(x, seg, n, axes)
+    mu2 = segment_mean_spmd(x * x, seg, n, axes)
+    return torch.sqrt(torch.clamp(mu2 - mu * mu, min=0.0) + eps)
+
+
+def degrees_spmd(seg, n, axes, dtype=torch.float32):
+    local = degrees(seg, n, dtype)
+    return psum(local, axes) if axes else local

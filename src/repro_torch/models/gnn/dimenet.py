@@ -10,9 +10,13 @@ simplifies it.  Bilinear interaction W[n_bilinear] as the paper's einsum
 
 Batch layout: z [N] atom types, pos [N, 3], edge_src/dst [E], t_kj/t_ji
 [T] (edge ids), batch_seg [N] molecule id, targets [B].  Output: per-
-molecule energy (MSE).  Only the plain ``forward``: the reference's
-explicit-SPMD variants (``spmd_axes``, ``forward_edge_sharded``) come with
-the sharding slice.
+molecule energy (MSE).
+
+Explicit SPMD, as the reference's: with ``spmd_axes`` (v1) the triplet
+arrays are this rank's shard and the triplet sum combines over those mesh
+axes; with ``edge_sharded`` too (v2, :func:`forward_edge_sharded`) the
+edge arrays are sharded as well and each block exchanges its edge
+messages with one all-gather.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.gnn.common import DTYPES, no_spmd, segment_sum, take
+from repro_torch.models.gnn.common import (DTYPES, segment_sum,
+                                           segment_sum_spmd, take)
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+from repro_torch.sharding.comm import all_gather_tiled, psum
 
 
 @dataclass(frozen=True)
@@ -40,7 +46,12 @@ class DimeNetConfig:
     n_atom_types: int = 16
     cutoff: float = 5.0
     compute_dtype: str = "float32"
-    spmd_axes: tuple = ()  # refused until the sharding slice
+    # triplet arrays sharded across these axes (edge/node arrays replicated)
+    spmd_axes: tuple = ()
+    # v2: edge arrays sharded too; edge-message MLPs run on the local shard
+    # and messages are exchanged with one all_gather per block instead of
+    # every rank recomputing the full [E, H] update
+    edge_sharded: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -85,7 +96,8 @@ class DimeNet(nn.Module):
 
     def forward(self, batch: dict) -> torch.Tensor:
         cfg = self.cfg
-        no_spmd(cfg)
+        if cfg.spmd_axes and cfg.edge_sharded:
+            return forward_edge_sharded(self, batch)
         dtype = cfg.dtype
         z, pos = batch["z"], batch["pos"].to(dtype)
         src, dst = batch["edge_src"], batch["edge_dst"]
@@ -121,19 +133,87 @@ class DimeNet(nn.Module):
             # directional message: for each triplet, source message m[t_kj]
             msrc = take(F.silu(m @ blk.w_src.to(dtype)), t_kj)  # [T, H]
             a = sbf @ blk.w_sbf.to(dtype)  # [T, B]
-            # recomputed in the backward pass, so autograd keeps its inputs
-            # and not its [T, B·H] outer product: six of those are 33 GB
-            # at minibatch_lg in float32, 66 GB in float64 (more than the
-            # card holds).  It draws no random numbers: no RNG state kept
-            inter = checkpoint(bilinear, a, blk.w_bil.to(dtype), msrc,
-                               use_reentrant=False, preserve_rng_state=False)
-            agg = segment_sum(inter, t_ji, e)  # sum over incoming triplets
+            inter = _bilinear_remat(a, blk.w_bil.to(dtype), msrc)
+            # the sum over incoming triplets
+            agg = segment_sum_spmd(inter, t_ji, e, cfg.spmd_axes)
             m = m + F.silu(mlp_apply(blk.update, m + agg))
             # output block: per-node then per-molecule energy contribution
             node_e = segment_sum(m, dst, n)
             per_graph = per_graph + segment_sum(
                 mlp_apply(out, node_e)[:, 0], seg, n_graphs)
         return per_graph
+
+
+def forward_edge_sharded(model: DimeNet, batch: dict) -> torch.Tensor:
+    """Explicit-SPMD v2: local edge shard + local triplets.
+
+    Batch (this rank's): edge_src/edge_dst [E_l] the local edge range;
+    t_kj [T_l] GLOBAL edge ids (sources may be remote); t_ji [T_l] LOCAL
+    edge ids (triplets co-partitioned with their target edge: a
+    data-pipeline guarantee, ``sharding.gnn_spmd.edge_shard_triplets``);
+    z/pos/batch_seg replicated.
+
+    Per block: edge-message MLP on [E_l, H]; one tiled all-gather
+    rebuilds [E, H] for the t_kj gathers; node sums psum.  The all-gather
+    is differentiable (its backward a reduce-scatter), so gradients stay
+    exact."""
+    cfg = model.cfg
+    axes = cfg.spmd_axes
+    dtype = cfg.dtype
+    z, pos = batch["z"], batch["pos"].to(dtype)
+    src, dst = batch["edge_src"], batch["edge_dst"]
+    t_kj, t_ji = batch["t_kj"], batch["t_ji"]
+    n = pos.shape[0]
+    e_l = src.shape[0]
+
+    vec_l = take(pos, dst) - take(pos, src)  # [E_l, 3]
+    d_l = torch.sqrt(torch.clamp(torch.sum(vec_l * vec_l, -1), min=1e-12))
+    rbf_l = _rbf(d_l, cfg).to(dtype)
+
+    # one gather of edge geometry for the triplet angle computation
+    vec_full = all_gather_tiled(vec_l, axes)  # [E, 3]
+    d_full = all_gather_tiled(d_l, axes)
+    v1 = -take(vec_full, t_kj)
+    v2 = take(vec_l, t_ji)
+    cosang = torch.sum(v1 * v2, -1) / torch.clamp(
+        torch.linalg.vector_norm(v1, dim=-1)
+        * torch.linalg.vector_norm(v2, dim=-1), min=1e-9)
+    angle = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
+    sbf = _sbf(angle, take(d_full, t_kj), cfg).to(dtype)  # [T_l, S*R]
+
+    hz = take(model.embed_z.to(dtype), z)
+    rbf_h = rbf_l @ model.rbf_w.to(dtype)
+    m = mlp_apply(model.edge_embed, torch.cat(
+        [take(hz, src), take(hz, dst), rbf_h], dim=-1))
+    m = F.silu(m)  # [E_l, H]
+
+    n_graphs = batch["targets"].shape[0]
+    per_graph = torch.zeros((n_graphs,), dtype=dtype, device=pos.device)
+    seg = batch.get("batch_seg")
+    if seg is None:
+        seg = torch.zeros((n,), dtype=torch.int32, device=pos.device)
+
+    for blk, out in zip(model.blocks, model.out_blocks):
+        msrc_l = F.silu(m @ blk.w_src.to(dtype))  # [E_l, H]
+        msrc_full = all_gather_tiled(msrc_l, axes)  # [E, H]
+        a = sbf @ blk.w_sbf.to(dtype)  # [T_l, B]
+        inter = _bilinear_remat(a, blk.w_bil.to(dtype),
+                                take(msrc_full, t_kj))
+        agg = segment_sum(inter, t_ji, e_l)  # purely local (co-partitioned)
+        m = m + F.silu(mlp_apply(blk.update, m + agg))
+        node_e = psum(segment_sum(m, dst, n), axes)
+        per_graph = per_graph + segment_sum(
+            mlp_apply(out, node_e)[:, 0], seg, n_graphs)
+    return per_graph
+
+
+def _bilinear_remat(a, w, msrc):
+    """:func:`bilinear`, recomputed in the backward pass, so autograd
+    keeps its inputs and not its [T, B·H] outer product: six of those are
+    33 GB at minibatch_lg in float32, 66 GB in float64 (more than the
+    card holds).  It draws no random numbers: no RNG state kept."""
+    return checkpoint(bilinear, a, w, msrc, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _rbf(d: torch.Tensor, cfg: DimeNetConfig) -> torch.Tensor:

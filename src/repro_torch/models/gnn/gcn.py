@@ -4,7 +4,8 @@
 1/sqrt(d_i d_j) coefficients (self-loops included).  gcn-cora config:
 2 layers, hidden 16, node classification.  The aggregation is plain torch
 (``index_add_``), as the reference's is ``jax.ops.segment_sum`` outside
-any Pallas kernel.
+any Pallas kernel; with ``spmd_axes`` the edges are this rank's shard and
+the sums combine over those mesh axes (``common.*_spmd``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from repro_torch.models.gnn.common import DTYPES, degrees, segment_sum, take
+from repro_torch.models.gnn.common import (DTYPES, degrees_spmd,
+                                           segment_sum_spmd, take)
 from repro_torch.models.layers import cross_entropy_loss, dense_init
 
 
@@ -26,6 +28,8 @@ class GCNConfig:
     d_feat: int
     n_classes: int
     compute_dtype: str = "float32"
+    # explicit-SPMD aggregation (edges sharded across these mesh axes)
+    spmd_axes: tuple = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -48,12 +52,14 @@ class GCN(nn.Module):
             for i in range(cfg.n_layers))
 
     def forward(self, batch: dict) -> torch.Tensor:
-        dtype = self.cfg.dtype
+        cfg = self.cfg
+        dtype = cfg.dtype
+        ax = cfg.spmd_axes
         x = batch["x"].to(dtype)
         src, dst = batch["edge_src"], batch["edge_dst"]
         n = x.shape[0]
         # symmetric norm with implicit self loops
-        deg = degrees(dst, n) + 1.0
+        deg = degrees_spmd(dst, n, ax) + 1.0
         inv = torch.rsqrt(deg)
         coef = (take(inv, src) * take(inv, dst))[:, None].to(dtype)
         self_coef = (inv * inv)[:, None].to(dtype)
@@ -61,7 +67,7 @@ class GCN(nn.Module):
         for i, w in enumerate(self.w):
             h = x @ w.to(dtype)
             msg = take(h, src) * coef
-            agg = segment_sum(msg, dst, n) + h * self_coef
+            agg = segment_sum_spmd(msg, dst, n, ax) + h * self_coef
             x = torch.relu(agg) if i < last else agg
         return x
 

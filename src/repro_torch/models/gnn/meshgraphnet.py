@@ -2,8 +2,9 @@
 
 15 message-passing layers; per layer an edge MLP m_e = MLP([h_u, h_v, e])
 updates edge features (residual) and a node MLP over [h_v, Σ_e m_e] updates
-node features (residual); sum aggregation (``index_add_``); 2-layer MLPs
-with LayerNorm.  Output: per-node dynamics regression (MSE).
+node features (residual); sum aggregation (``index_add_``, over this
+rank's edge shard and the ``spmd_axes`` ranks with ``spmd_axes``); 2-layer
+MLPs with LayerNorm.  Output: per-node dynamics regression (MSE).
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from repro_torch.models.gnn.common import DTYPES, no_spmd, segment_sum, take
+from repro_torch.models.gnn.common import (DTYPES, segment_sum_spmd,
+                                           take)
 from repro_torch.models.layers import layernorm, mlp_apply, mlp_init
 
 
@@ -27,7 +29,7 @@ class MGNConfig:
     d_out: int
     mlp_layers: int = 2
     compute_dtype: str = "float32"
-    spmd_axes: tuple = ()  # refused until the sharding slice
+    spmd_axes: tuple = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -78,8 +80,8 @@ class MeshGraphNet(nn.Module):
                                     for _ in range(cfg.n_layers))
 
     def forward(self, batch: dict) -> torch.Tensor:
-        no_spmd(self.cfg)
-        dtype = self.cfg.dtype
+        cfg = self.cfg
+        dtype = cfg.dtype
         x = batch["x"].to(dtype)
         e = batch["edge_attr"].to(dtype)
         src, dst = batch["edge_src"], batch["edge_dst"]
@@ -89,7 +91,7 @@ class MeshGraphNet(nn.Module):
         for blk in self.blocks:
             he = he + blk.edge(torch.cat([take(h, src), take(h, dst), he],
                                          dim=-1))
-            agg = segment_sum(he, dst, n)
+            agg = segment_sum_spmd(he, dst, n, cfg.spmd_axes)
             h = h + blk.node(torch.cat([h, agg], dim=-1))
         return mlp_apply(self.decoder, h)
 

@@ -4,7 +4,9 @@
 amplification / attenuation) → 12-fold concatenated message, post-MLP per
 layer.  Config pna: 4 layers, hidden 75.  The aggregation is plain torch
 (``index_add_``, ``scatter_reduce``), as the reference's is
-``jax.ops.segment_*`` outside any Pallas kernel.
+``jax.ops.segment_*`` outside any Pallas kernel; with ``spmd_axes`` the
+edges are this rank's shard and the aggregators combine over those mesh
+axes (``common.*_spmd``).
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from repro_torch.models.gnn.common import (DTYPES, degrees, no_spmd,
-                                           segment_max, segment_mean,
-                                           segment_min, segment_std, take)
+from repro_torch.models.gnn.common import (DTYPES, degrees_spmd,
+                                           segment_max_spmd,
+                                           segment_mean_spmd,
+                                           segment_min_spmd,
+                                           segment_std_spmd, take)
 from repro_torch.models.layers import cross_entropy_loss, mlp_apply, mlp_init
 
 
@@ -29,7 +33,7 @@ class PNAConfig:
     n_classes: int
     delta: float = 2.5  # mean log-degree normalizer (dataset statistic)
     compute_dtype: str = "float32"
-    spmd_axes: tuple = ()  # refused until the sharding slice
+    spmd_axes: tuple = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -67,20 +71,23 @@ class PNA(nn.Module):
 
     def forward(self, batch: dict) -> torch.Tensor:
         cfg = self.cfg
-        no_spmd(cfg)
         dtype = cfg.dtype
+        ax = cfg.spmd_axes
         x = batch["x"].to(dtype)
         src, dst = batch["edge_src"], batch["edge_dst"]
         n = x.shape[0]
-        logd = torch.log(degrees(dst, n) + 1.0)
+        deg = degrees_spmd(dst, n, ax)
+        logd = torch.log(deg + 1.0)
         amp = (logd / cfg.delta)[:, None].to(dtype)
         # a node of degree 0 gets delta / 1e-2
         att = (cfg.delta / torch.clamp(logd, min=1e-2))[:, None].to(dtype)
         for layer in self.layers:
             msg_in = torch.cat([take(x, src), take(x, dst)], dim=-1)
             m = torch.relu(mlp_apply(layer.pre, msg_in))
-            aggs = [segment_mean(m, dst, n), segment_max(m, dst, n),
-                    segment_min(m, dst, n), segment_std(m, dst, n)]
+            aggs = [segment_mean_spmd(m, dst, n, ax),
+                    segment_max_spmd(m, dst, n, ax),
+                    segment_min_spmd(m, dst, n, ax),
+                    segment_std_spmd(m, dst, n, ax)]
             scaled = []
             for a in aggs:
                 # an empty segment's max / min is -inf / +inf

@@ -4,10 +4,9 @@ Conventions, as in the reference's ``models/layers.py``:
   - weights are ``[in, out]`` and applied as ``x @ w`` (so carrying a
     reference weight across is a copy);
   - master dtype float32, cast to the compute dtype where used;
-  - initializers draw from an explicit ``torch.Generator``.
-
-The reference's ``shard_hint`` has no counterpart: sharding comes with a
-later slice.
+  - initializers draw from an explicit ``torch.Generator``;
+  - activations may carry sharding hints via ``shard_hint``, which acts on
+    a DTensor only.
 """
 
 from __future__ import annotations
@@ -17,6 +16,27 @@ from typing import Callable, Sequence
 
 import torch
 from torch import nn
+
+
+def shard_hint(x: torch.Tensor, spec) -> torch.Tensor:
+    """A DTensor ``x`` redistributed to ``spec``'s placements on its own
+    mesh (``sharding.specs``); ``x`` as it is when ``spec`` is None, when
+    ``x`` is a plain tensor (the reference's hint outside a mesh) or when
+    ``spec`` names an axis the mesh lacks."""
+    if spec is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.specs import placements
+
+    mesh = x.device_mesh
+    for axis in spec:
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            if a is not None and a not in mesh.mesh_dim_names:
+                return x
+    return x.redistribute(mesh, placements(tuple(spec), mesh))
 
 
 def dense_init(in_dim: int, out_dim: int, scale: float | None = None, *,
@@ -176,9 +196,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Mean CE over non-ignored positions, in float32 (float64 for
     float64); logits [..., V], labels int [...]."""
     logits = logits.to(_stats_dtype(logits.dtype))
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.long().clamp(min=0)[..., None])[..., 0]
-    nll = lse - ll
+    # the label's logit keeps its last dimension until after the
+    # subtraction: on vocabulary-sharded DTensor logits the gathered value
+    # is a masked partial sum, which DTensor reduces only in that shape
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    ll = torch.gather(logits, -1, labels.long().clamp(min=0)[..., None])
+    nll = (lse - ll)[..., 0]
     mask = (labels != ignore).to(nll.dtype)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -11,8 +11,10 @@ and scans them: a stacked ``Parameter`` would have autograd build a
 gradient of the whole stack for every layer's slice.
 ``convert.params_from_jax`` splits the reference's stacks.  The layer
 loop is a Python loop, so ``LMConfig.unroll_layers`` changes nothing
-here, and ``act_spec`` / ``logits_spec`` (sharding hints) are kept in the
-config but have no effect until sharding is ported.
+here.  ``act_spec`` / ``logits_spec`` (specs of ``sharding.specs``)
+redistribute the activations and the logits where the reference places
+its ``shard_hint``, on a model sharded with DTensors
+(``sharding.lm``); on plain tensors they do nothing.
 
 Numerics follow the reference's functions term for term: the attention
 logits are bf16 products summed in float32 (``preferred_element_type``),
@@ -41,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
                                        dense_init, embed_init, rmsnorm,
-                                       rope_angles, swiglu)
+                                       rope_angles, shard_hint, swiglu)
 from repro_torch.models.moe import MoE, MoEConfig, moe_apply
 
 
@@ -76,7 +78,8 @@ class LMConfig:
     compute_dtype: str = "bfloat16"
     # no effect in the port (the layer loop is a Python loop)
     unroll_layers: bool = False
-    # sharding hints of the reference; no effect in the port yet
+    # sharding hints (specs over [batch, seq, model_dim] and the logits):
+    # they place DTensor activations, and do nothing on plain tensors
     act_spec: Any = None
     logits_spec: Any = None
 
@@ -279,8 +282,38 @@ def _attention_full(x, attn, cfg: LMConfig, sin, cos):
     if cfg.attn == "mla":
         return _mla_full(x, attn, cfg, sin, cos)
     q, k, v = _project(x, attn, cfg, sin, cos)
-    out = _gqa(q, k, v, causal=True, fp32_logits=cfg.attn_fp32_logits)
+    out = _attend(q, k, v, fp32_logits=cfg.attn_fp32_logits)
     return out.reshape(b, s, -1) @ attn.wo.to(x.dtype)
+
+
+def _attend(q, k, v, fp32_logits: bool = True):
+    """Causal :func:`_gqa` of the training path.  On DTensors (the DP+TP
+    step) it runs on each rank's own batch rows and heads
+    (``local_map``): attention is independent across both, and DTensor
+    has no rule for the batched product's fold of a batch dimension and a
+    head dimension sharded over different mesh axes.  A placement other
+    than the batch (dim 0) or the heads (dim 2, when the KV heads divide
+    over it, so each rank's query heads find their KV heads) is
+    replicated first."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return _gqa(q, k, v, causal=True, fp32_logits=fp32_logits)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    heads = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                      if p == Shard(2))
+    keep = (Shard(0), Shard(2)) if k.shape[2] % heads == 0 else (Shard(0),)
+    pl = [p if p in keep else Replicate() for p in q.placements]
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+
+    def local(q, k, v):
+        return _gqa(q, k, v, causal=True, fp32_logits=fp32_logits)
+
+    return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _gqa(q, k, v, causal: bool = True, q_offset: int = 0, kv_len=None,
@@ -359,7 +392,7 @@ def _mla_full(x, attn: MLAAttention, cfg: LMConfig, sin, cos):
     v = (ckv @ attn.w_uv.to(x.dtype)).reshape(b, s, h, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, dr)], dim=-1)
-    out = _gqa(q, k, v, causal=True, fp32_logits=cfg.attn_fp32_logits)
+    out = _attend(q, k, v, fp32_logits=cfg.attn_fp32_logits)
     return out.reshape(b, s, h * dv) @ attn.wo.to(x.dtype)
 
 
@@ -384,9 +417,25 @@ def _mix(h, layer: Layer, cfg: LMConfig):
 
 
 def _layer_fwd(x, layer: Layer, cfg: LMConfig, sin, cos):
-    x = x + _attention_full(rmsnorm(x, layer.ln1), layer.attn, cfg, sin, cos)
+    x = x + shard_hint(_attention_full(rmsnorm(x, layer.ln1), layer.attn,
+                                       cfg, sin, cos), cfg.act_spec)
     y, aux = _mix(rmsnorm(x, layer.ln2), layer, cfg)
-    return x + y, aux
+    return x + shard_hint(y, cfg.act_spec), aux
+
+
+def _embed(table, tokens):
+    """``table[tokens]``.  A DTensor table (the DP+TP step) is gathered
+    whole first (its gradient reduce-scattered back), then looked up with
+    ``F.embedding``: the same values, where DTensor's rules for a gather
+    from vocabulary shards (a masked partial sum) and for the indexing's
+    ``index_put`` backward fail in some torch releases."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(table, DTensor):
+        whole = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+        return torch.nn.functional.embedding(tokens, whole)
+    return table[tokens]
 
 
 def _rope(positions, cfg: LMConfig):
@@ -397,32 +446,50 @@ def _rope(positions, cfg: LMConfig):
     return sin[None, :, None, :], cos[None, :, None, :]
 
 
-def forward(model: TransformerLM, tokens: torch.Tensor):
-    """tokens int [B, S] -> (logits [B, S, V] in the compute dtype, aux
-    loss: float32, the sum of the MoE layers' load-balance terms, zero
-    without MoE).  With ``cfg.remat`` and gradients enabled each layer is
+def embed_tokens(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig):
+    """tokens int [B, S] -> their embeddings [B, S, D] in the compute
+    dtype, placed by ``act_spec``."""
+    # cast, then gather: a repeated token's gradient accumulates in the
+    # compute dtype, as the reference's gather transposes
+    return shard_hint(_embed(model.embed.to(cfg.dtype), tokens.long()),
+                      cfg.act_spec)
+
+
+def run_layers(x, layers, cfg: LMConfig, sin, cos):
+    """``layers`` in turn on ``x`` -> (x, the sum of their MoE aux losses,
+    float32).  With ``cfg.remat`` and gradients enabled each layer is
     recomputed in the backward (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``; the MoE dispatch is deterministic, so
     the recompute routes as the first forward did)."""
-    cfg = model.cfg
-    _, s = tokens.shape
-    # cast, then gather: a repeated token's gradient accumulates in the
-    # compute dtype, as the reference's gather transposes
-    x = model.embed.to(cfg.dtype)[tokens.long()]
-    sin, cos = _rope(torch.arange(s, dtype=torch.int32, device=x.device),
-                     cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in model.layers():
+    for layer in layers:
         if remat:
             x, a = checkpoint(_layer_fwd, x, layer, cfg, sin, cos,
                               use_reentrant=False)
         else:
             x, a = _layer_fwd(x, layer, cfg, sin, cos)
         aux = aux + a
+    return x, aux
+
+
+def logits_of(model: TransformerLM, x, cfg: LMConfig):
+    """The final norm and the LM head: logits [B, S, V] in ``x``'s dtype,
+    placed by ``logits_spec``."""
     x = rmsnorm(x, model.final_ln)
-    logits = x @ model.lm_head.to(x.dtype)
-    return logits, aux
+    return shard_hint(x @ model.lm_head.to(x.dtype), cfg.logits_spec)
+
+
+def forward(model: TransformerLM, tokens: torch.Tensor):
+    """tokens int [B, S] -> (logits [B, S, V] in the compute dtype, aux
+    loss: float32, the sum of the MoE layers' load-balance terms, zero
+    without MoE)."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens, cfg)
+    sin, cos = _rope(torch.arange(tokens.shape[1], dtype=torch.int32,
+                                  device=x.device), cfg)
+    x, aux = run_layers(x, model.layers(), cfg, sin, cos)
+    return logits_of(model, x, cfg), aux
 
 
 def loss_fn(model: TransformerLM, batch: dict) -> torch.Tensor:

@@ -16,8 +16,13 @@ nested in dicts, lists, tuples and named tuples (the optimizer's
   synchronously and writes in a daemon thread, overlapping I/O with the
   next training steps (which update the device tensors in place).
 - ``restore`` returns trees shaped like its templates, each leaf on its
-  template's device and dtype; a shape mismatch raises.  Re-sharding on
-  restore comes with the sharding slice.
+  template's device and dtype; a shape mismatch raises.  With
+  ``shardings`` (trees like the templates whose leaves are
+  ``sharding.specs.NamedSharding``) each leaf is placed on its mesh as a
+  DTensor instead (elastic restore: the mesh may differ from the one the
+  checkpoint was saved from).
+- A tree holding DTensors is saved by every rank of their mesh (each
+  gathers the full values), and written by global rank 0 alone.
 """
 
 from __future__ import annotations
@@ -50,13 +55,21 @@ def _items(tree: Any):
     return None
 
 
+def _dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def _flatten(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
-    """Leaf path -> a host copy of the tensor."""
+    """Leaf path -> a host copy of the tensor (a DTensor's full value)."""
     items = _items(tree)
     if items is None:
         if tree is None:
             return {}
         leaf = torch.as_tensor(tree).detach()
+        if _dtensor(leaf):
+            leaf = leaf.full_tensor()
         return {prefix: leaf.to("cpu", copy=True)}
     flat = {}
     for part, child in items:
@@ -65,7 +78,8 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
     return flat
 
 
-def _unflatten(template: Any, flat: dict, prefix: str = ""):
+def _unflatten(template: Any, flat: dict, prefix: str = "",
+               sharding: Any = None):
     items = _items(template)
     if items is None:
         if template is None:
@@ -76,14 +90,30 @@ def _unflatten(template: Any, flat: dict, prefix: str = ""):
             raise ValueError(f"checkpoint leaf {prefix}: shape "
                              f"{tuple(arr.shape)} != template "
                              f"{tuple(tmpl.shape)}")
-        return arr.to(device=tmpl.device, dtype=tmpl.dtype, copy=True)
+        if sharding is None:
+            return arr.to(device=tmpl.device, dtype=tmpl.dtype, copy=True)
+        from repro_torch.sharding.specs import distribute
+
+        mesh = sharding.mesh
+        return distribute(arr.to(device=mesh.device_type, dtype=tmpl.dtype,
+                                 copy=True), mesh, sharding.spec)
+    shard_kids = (dict(_items(sharding)) if sharding is not None
+                  else {})
     kids = [_unflatten(child, flat, f"{prefix}{_SEP}{part}" if prefix
-                       else part) for part, child in items]
+                       else part, shard_kids.get(part))
+            for part, child in items]
     if isinstance(template, dict):
         return dict(zip(template, kids))
     if hasattr(template, "_fields"):
         return type(template)(*kids)
     return type(template)(kids)
+
+
+def _sharded(tree: Any) -> bool:
+    items = _items(tree)
+    if items is None:
+        return tree is not None and _dtensor(tree)
+    return any(_sharded(child) for _, child in items)
 
 
 class Checkpointer:
@@ -101,6 +131,8 @@ class Checkpointer:
         meta = {"step": int(step), "names": sorted(host),
                 "extra": extra or {}}
         self.wait()
+        if _sharded(trees) and torch.distributed.get_rank() != 0:
+            return
         if blocking:
             self._write(step, host, meta)
         else:
@@ -148,19 +180,25 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, templates: dict[str, Any], step: int | None = None):
+    def restore(self, templates: dict[str, Any], step: int | None = None,
+                shardings: dict[str, Any] | None = None):
         """Restore trees shaped like ``templates``: ``(step, trees,
         extra)``, or None when there is no checkpoint.  A write still in
         flight is waited for first, so a retry restores the checkpoint its
-        loop last saved, not an older one."""
+        loop last saved, not an older one.  ``shardings[name]`` (a tree
+        like ``templates[name]`` of ``NamedSharding`` leaves, or None
+        leaves for plain tensors) places each leaf of that tree, once its
+        shape is checked against the template's, as a DTensor on its
+        mesh."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
         d = self.dir / f"step_{step:012d}"
         meta = json.loads((d / "meta.json").read_text())
+        shardings = shardings or {}
         out = {name: _unflatten(template, torch.load(
                    d / f"{name}.pt", map_location="cpu", weights_only=True,
-                   mmap=True))
+                   mmap=True), sharding=shardings.get(name))
                for name, template in templates.items()}
         return int(meta["step"]), out, meta.get("extra", {})

@@ -13,7 +13,8 @@ moments' decay), as in the reference: no sparse or lazy Adam.
 Compression: gradients can be quantized to int8 with a per-leaf scale and
 an error-feedback residual carried in the optimizer state
 (``grad_compress=True``).  The data-parallel mean (the reference's
-``axis_name``) comes with the sharding slice.
+``axis_name``) is an all-reduce over a process group, after the
+compression, as the reference's ``pmean``.
 """
 
 from __future__ import annotations
@@ -95,16 +96,22 @@ def adamw_update(params: dict[str, torch.Tensor],
                  cfg: OptConfig, group=None):
     """One AdamW step, in place: returns ``(params, new_state,
     grad_norm)``, ``params`` and the state's moment dicts being the same
-    objects, updated.  ``group`` (the reference's ``axis_name``: a
-    data-parallel mean after compression) is not ported yet."""
-    if group is not None:
-        raise NotImplementedError(
-            "the data-parallel gradient mean comes with the sharding slice")
+    objects, updated.  With ``group`` (a process group: the reference's
+    ``axis_name``) the gradients are averaged over its ranks after the
+    compression, before the clipping."""
     if cfg.grad_compress:
         pairs = {k: compress_int8(g, state.err[k]) for k, g in grads.items()}
         grads = {k: pr[0] for k, pr in pairs.items()}
         for k, pr in pairs.items():
             state.err[k].copy_(pr[1])
+    if group is not None:
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        grads = {k: g.clone() for k, g in grads.items()}
+        for g in grads.values():
+            dist.all_reduce(g, group=group)
+            g.div_(n)
     # clip by global norm
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)

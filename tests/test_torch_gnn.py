@@ -394,9 +394,12 @@ def test_cell_batch_has_the_input_specs_shapes(name, cell):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_spmd_config_is_refused(name):
+    """A config with ``spmd_axes`` runs its collectives over the mesh the
+    step runs under (``sharding.comm.mesh_scope``); outside one it is
+    refused (the SPMD runs themselves: tests/test_torch_sharding.py)."""
     _, _, _, _, arch, model, tbatch = _world(name)
     model.cfg = dataclasses.replace(model.cfg, spmd_axes=("data",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(RuntimeError, match="mesh_scope"):
         model(tbatch)
 
 

@@ -89,6 +89,13 @@ import repro_torch.train.loop
 import repro_torch.train.optimizer
 import repro_torch.train.straggler
 import repro_torch.train.trainstep
+import repro_torch.launch.mesh
+import repro_torch.sharding
+import repro_torch.sharding.comm
+import repro_torch.sharding.gnn_spmd
+import repro_torch.sharding.lm
+import repro_torch.sharding.pipeline
+import repro_torch.sharding.specs
 from repro_torch.launch import train as launch_train
 with tempfile.TemporaryDirectory() as d:
     for arch in ("dlrm-rm2", "gcn-cora", "pna", "qwen3-8b"):
@@ -123,10 +130,12 @@ def test_no_source_imports_jax_or_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.MULTILINE)
     # chip_smoke.py runs on the card without JAX, with the shared cases
     files = sorted(PKG.rglob("*.py")) + sorted(
-        (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "tests" / "torch_cases.py"]
+        (ROOT / "tools").glob("*.py")) + [
+            ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py",
+            ROOT / "tests" / "torch_sharding_ranks.py"]
     assert len(files) > 20
     assert PKG / "store" / "versioned.py" in files
+    assert PKG / "sharding" / "gnn_spmd.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
 

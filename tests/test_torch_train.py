@@ -112,8 +112,22 @@ def test_grad_clipping():
     _, _, gn = adamw_update(params, {"w": torch.full((4,), 100.0)}, state,
                             cfg)
     assert float(gn) == pytest.approx(200.0)
-    with pytest.raises(NotImplementedError):
-        adamw_update(params, {"w": torch.ones(4)}, state, cfg, group="dp")
+    # the data-parallel mean over a group of one rank changes nothing
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        p1 = {"w": torch.ones(4)}
+        p2 = {"w": torch.ones(4)}
+        g = {"w": torch.tensor([3.0, -1.0, 0.5, 2.0])}
+        adamw_update(p1, g, adamw_init(p1, cfg), cfg)
+        _, _, gn2 = adamw_update(p2, g, adamw_init(p2, cfg), cfg,
+                                 group=dist.group.WORLD)
+        torch.testing.assert_close(p2["w"], p1["w"], rtol=0, atol=0)
+        assert float(gn2) == pytest.approx(float(torch.linalg.norm(g["w"])))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_compress_int8_matches_reference_and_rounds_half_even():
