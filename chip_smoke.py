@@ -125,7 +125,7 @@ Phases, each fatal on failure (no phase's error is caught):
 9. zoo (run after phase 6's gather window): (a) ``repro_torch.launch.
    train.main`` trains DLRM RM-2 at its published size (26 tables,
    19,107,700 rows, embed 64, bottom MLP 13-512-256-64, top MLP
-   512-256-1, hotness 8; 1,223,392,321 parameters) for 3 steps at the
+   512-256-1, hotness 8; 1,223,392,321 parameters) for 2 steps at the
    ``train_batch`` cell's 65,536 on the card and writes its 14.7 GB final
    checkpoint (the phase first checks that 30 GB are free under its
    directory in ``build/``); ``final step=3`` is printed, the loss is
@@ -152,7 +152,7 @@ Phases, each fatal on failure (no phase's error is caught):
 10. lm (after phase 9, whose model and optimizer state are freed first):
    (a) ``repro_torch.launch.train.main`` trains qwen2-1.5b at its
    published size (28 layers, d_model 1536, GQA 12/2, d_ff 8960, vocab
-   151,936, QKV bias, untied head; 1,777,088,000 parameters) for 3 steps
+   151,936, QKV bias, untied head; 1,777,088,000 parameters) for 2 steps
    at ``train_4k``'s sequence length of 4096, the batch cut from 256 to 4
    (AdamW's float32 state alone is 28.4 GB) in 2 microbatches, and writes
    its 21.3 GB final checkpoint (the phase first checks that 50 GB are
@@ -239,7 +239,7 @@ Phases, each fatal on failure (no phase's error is caught):
    ``full_graph_sm`` for PNA and MeshGraphNet), a batch drawn from a seed
    at the cell's shapes (DimeNet's ``t = 8e`` triplets): one step on the
    card split into H2D, forward, backward and AdamW (CUDA events; then
-   five warm passes of each, their median and range), its peak memory,
+   three warm passes of each, their median and range), its peak memory,
    the same step on
    the CPU from the same weights and a float64 run on the card: the loss,
    the gradient norm, each gradient leaf norm-wise and the AdamW step
@@ -266,9 +266,28 @@ Phases, each fatal on failure (no phase's error is caught):
    AdamW update by norm) and timed as (a); (b) after (a) and (c) have
    run alone, two gloo ranks sharing the card, mesh (1, 2): the same five
    at ``molecule``, each rank against the unsharded step (it verifies
-   nothing multi-card; no DP+TP step there: ``ST_B_NO_LM``).
+   nothing multi-card; no DP+TP step there: ``ST_B_NO_LM``);
+14. dryrun (after phase 13): (a) the engine cells of
+   ``configs/turbohom.py`` at their production size on one card: a graph
+   of 260,000,000 vertices and 1,230,000,000 edges in 18 edge-label
+   blocks built on the card from ``EC_SEED`` (``engine_graph``: the join's
+   label is the last block, so every join probe searches past offset
+   2^30; rows 2 and 3 copy half their edges from row 0's, which makes the
+   closing edges), one rank's replica of it (9.08 GB for ``triangle_q2``,
+   10.12 GB for ``star_q4``), 16 x 16,384 start vertices dealt by
+   ``GreedyChunker``; every shard's row through ``engine_cell`` on a
+   one-rank NCCL mesh (the ``engine_cell`` window), each shard's count and
+   overflow equal to the port's CPU run on a host copy; one shard's
+   ``bitmap_superset`` and ``edge_exists`` calls bit-equal to their plain
+   versions on the card, the join also equal to numpy's ``searchsorted``
+   in int64, both answers of each kernel seen; five warm passes a shard;
+   the heaviest row-0 vertices at capacity 4096 overflow on the card and
+   on the CPU; (b) ``repro_torch.launch.dryrun`` in a subprocess on
+   ``DRYRUN_CELLS`` (single-pod mesh of 256 fake ranks, fake tensors on
+   ``cuda``): every record ``ok``, no kernel launched, no device memory
+   allocated.
 
-The run drives eleven paths, each in its own launch-counting window: the
+The run drives twelve paths, each in its own launch-counting window: the
 static path (phases 4-5), the parameterized path (phase 5c's family
 batches; the lanes' checks and the solo timings come after the window
 closes), the sharded path (phase 8's ``run_sharded`` and
@@ -291,7 +310,9 @@ none of the seven), and the gnn path (phase 12 (a) and (b)'s card
 steps; the reference's PNA, MeshGraphNet and DimeNet aggregate with
 ``jax.ops.segment_*`` outside any Pallas kernel, so none of the seven),
 and the sharded_train path (phase 13, all of it; plain torch and
-collectives, none of the seven).
+collectives, none of the seven), and the engine_cell path (phase 14 (a):
+each engine cell's step on every shard once; ``bitmap_superset`` and
+``edge_exists``).
 The device memory still allocated before phases 9-12 is logged and
 recorded (``held`` and each phase's
 ``held_before_phase``).  The
@@ -397,6 +418,8 @@ PATH_KERNELS = {
     # phase 13: the same models' SPMD steps and the LM's DP+TP step and
     # pipeline, all plain torch and collectives: none of the seven
     "sharded_train": (),
+    # phase 14 (a): the engine cells' steps, their label filter and join
+    "engine_cell": ("edge_exists", "bitmap_superset"),
 }
 PARITY = {  # BENCH_exec.json keys checked at parity scale
     "lubm": ("Q2", "Q8", "Q9", "Q13"),
@@ -3038,7 +3061,7 @@ def gather_row(torch, ops, ref, inputs, outs) -> dict:
 # and the train_batch cell's batch (configs/common.py RECSYS_SHAPES); (b)
 # caps each table at ZOO_CAP rows; (c) runs the serving cells' sizes
 ZOO_BATCH = 65_536
-ZOO_STEPS = 3
+ZOO_STEPS = 2  # cut from 3 for the script's time limit
 ZOO_CAP = 100_000
 ZOO_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}
 ZOO_CANDIDATES = 1_000_000
@@ -3272,7 +3295,7 @@ def zoo_phase(torch, ops, ref, card: str):
     """Phase 9: the model zoo's trainer on the card.  ``drive``, the launch
     window's whole content: (a) ``repro_torch.launch.train.main`` trains
     DLRM RM-2 at its published size (26 tables, 19,107,700 rows, embed 64)
-    for 3 steps at batch 65,536, then writes its final checkpoint; the
+    for 2 steps at batch 65,536, then writes its final checkpoint; the
     largest ``segment_gather_fixed`` call is recorded.  ``finish(out,
     launches)``, after the window (``launches``: the window's count of
     ``segment_gather``): (a)'s checks (``final step=3`` printed, a finite
@@ -3624,7 +3647,7 @@ LM_PARAMS = 1_777_088_000
 LM_BATCH = 4
 LM_SEQ = 4096
 LM_MICROBATCHES = 2
-LM_STEPS = 3
+LM_STEPS = 2  # cut from 3 for the script's time limit
 LM_FREE_BYTES = 50e9
 # (b): full width, depth cut to 2 layers, batch 2 x 128 (TokenStream seed
 # 0), card against CPU in float32 and bfloat16, beside a float64 run on the
@@ -4060,7 +4083,7 @@ def lm_phase(torch, card: str):
     """Phase 10: the dense LM on the card.  ``drive``, the launch window's
     whole content: (a) ``repro_torch.launch.train.main`` trains qwen2-1.5b
     at its published size (28 layers, d_model 1536, GQA 12/2, d_ff 8960,
-    vocab 151,936, QKV bias; 1,777,088,000 parameters) for 3 steps at
+    vocab 151,936, QKV bias; 1,777,088,000 parameters) for 2 steps at
     train_4k's sequence length 4096, batch 4 in 2 microbatches, then writes
     its final checkpoint.  ``finish(out, launches)``, after the window:
     (a)'s checks (``final step=3`` printed, finite losses, every leaf moved,
@@ -4870,7 +4893,8 @@ GNN_TOL = {"pna": {"loss": 1e-6, "gnorm": 2e-4, "grad": 2e-2},
            "dimenet": {"loss": 1e-4, "gnorm": 3e-5, "grad": 5e-4}}
 GNN_ADAM_RTOL = 0.5
 # (b)'s warm passes a cell: forward + backward, then AdamW, each timed
-GNN_WARM = 5
+# (cut from 5 for the script's time limit)
+GNN_WARM = 3
 # the cells whose CPU step is cut: DimeNet's at minibatch_lg took 69-72 s
 # on the GPU machine's 8-core host, more than half the phase, with the
 # script near its time limit.  The card still runs the whole cell, and
@@ -5752,6 +5776,411 @@ def sharded_train_phase(torch, card: str):
     return drive, finish
 
 
+# ------------------------------------------------------------------ dryrun
+
+# phase 14 (a): the engine cells at the production size of
+# src/repro_torch/configs/turbohom.py (260M vertices, 1.23B edges in 18
+# edge-label blocks).  The plan's rows are the CSR rows of four labels;
+# row 0, the join's label, is the last block of nbr_el, so every join probe
+# searches a range past offset 2^30 (where lo + hi passes 2^31 - 1)
+EC_SEED = 24
+EC_ROW_LABELS = (17, 0, 5, 11)  # labels of iptr rows 0..3
+EC_JOIN_EDGES = 150_000_000  # row 0's block: it starts past 2^30
+EC_ROW_EDGES = 260_000_000  # rows 1-3: one edge a vertex on average
+# rows 2 and 3 copy this share of their edges from row 0's, so a step's
+# new vertex is often also a row-0 neighbour of the vertex it came from:
+# the join's closing edges (the rest of the blocks are uniform draws)
+EC_CLOSING_SHARE = 0.5
+EC_LABEL_SHARE = 0.75  # vertices with bit 0 (the step filter's label) set
+# start vertices: row-0 degree exactly 2, so every candidate's estimated
+# load is equal and GreedyChunker deals each shard exactly `chunk` of
+# them (the cell's production shape)
+EC_START_DEGREE = 2
+EC_SHARDS = 16  # the single-pod mesh's data-parallel shards
+EC_WARM = 5
+EC_OVF_CAP = 4096
+# the dry run on the card machine: one cell of each family, the engine's
+# two, in one subprocess
+DRYRUN_CELLS = ("turbohom:triangle_q2", "turbohom:star_q4",
+                "qwen2-1.5b:decode_32k", "deepseek-v2-236b:decode_32k",
+                "gcn-cora:full_graph_sm:shard_map", "dlrm-rm2:serve_p99")
+DRYRUN_TIMEOUT_S = 300
+
+
+def engine_graph(torch, cfg, seed: int) -> dict:
+    """The engine cells' replicated arrays, built on the card from
+    ``seed``: ``nbr_el`` int32 [n_edges] in ``(el, src, dst)`` order (each
+    block's edges drawn as uniform (src, dst) pairs, rows 2 and 3 with
+    ``EC_CLOSING_SHARE`` of theirs copied from row 0's, then sorted by
+    ``src · n_v + dst``), ``iptr_rows`` int32 [4, n_v + 1] (the global
+    offsets of each plan row's label) and ``label_bitmap`` int32 [n_v, 1]
+    (random words, bit 0 set on ``EC_LABEL_SHARE`` of the vertices)."""
+    n_v, n_e, n_l = cfg.n_vertices, cfg.n_edges, cfg.n_elabels
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizes = {EC_ROW_LABELS[0]: EC_JOIN_EDGES}
+    sizes.update({el: EC_ROW_EDGES for el in EC_ROW_LABELS[1:]})
+    rest = [el for el in range(n_l) if el not in sizes]
+    left = n_e - sum(sizes.values())
+    for i, el in enumerate(rest):
+        sizes[el] = left // len(rest) + (1 if i < left % len(rest) else 0)
+    check(EC_ROW_LABELS[0] == n_l - 1 and sum(sizes.values()) == n_e,
+          "phase 14: the label blocks do not tile nbr_el")
+    base = {}
+    off = 0
+    for el in range(n_l):
+        base[el] = off
+        off += sizes[el]
+    check(base[EC_ROW_LABELS[0]] > (1 << 30),
+          "phase 14: the join's block must start past 2^30")
+    nbr = torch.empty(n_e, dtype=torch.int32, device=dev)
+    iptr = torch.empty((len(EC_ROW_LABELS), n_v + 1), dtype=torch.int32,
+                       device=dev)
+    join = {}
+
+    def draw(n):
+        return torch.randint(0, n_v, (n,), generator=gen, device=dev)
+
+    # row 0's label first: rows 2 and 3 copy from it
+    order = [EC_ROW_LABELS[0]] + [el for el in range(n_l)
+                                  if el != EC_ROW_LABELS[0]]
+    for el in order:
+        e = sizes[el]
+        copy = int(e * EC_CLOSING_SHARE) if el in EC_ROW_LABELS[2:] else 0
+        src, dst = draw(e - copy), draw(e - copy)
+        if copy:
+            pick = torch.randint(0, join["src"].shape[0], (copy,),
+                                 generator=gen, device=dev)
+            src = torch.cat([src, join["src"][pick]])
+            dst = torch.cat([dst, join["dst"][pick]])
+            del pick
+        key = torch.sort(src * n_v + dst).values
+        del src, dst
+        src = key // n_v
+        nbr[base[el]:base[el] + e] = (key - src * n_v).to(torch.int32)
+        del key
+        if el == EC_ROW_LABELS[0]:
+            join["src"] = src
+            join["dst"] = nbr[base[el]:base[el] + e].long()
+        if el in EC_ROW_LABELS:
+            row = EC_ROW_LABELS.index(el)
+            counts = torch.bincount(src, minlength=n_v)
+            iptr[row, 0] = base[el]
+            iptr[row, 1:] = (torch.cumsum(counts, 0) + base[el]).to(
+                torch.int32)
+            del counts
+        del src
+    del join
+    bits = torch.randint(0, 1 << 31, (n_v, 1), generator=gen, device=dev)
+    on = torch.rand((n_v, 1), generator=gen, device=dev) < EC_LABEL_SHARE
+    bm = ((bits & ~1) | on.long()).to(torch.int32)
+    del bits, on
+    torch.cuda.synchronize()
+    return {"nbr_el": nbr, "iptr_rows": iptr, "label_bitmap": bm,
+            "block_bases": base, "block_sizes": sizes}
+
+
+def dryrun_phase(torch, ops, ref, card: str):
+    """Phase 14: the dry-run slice.  Set-up, run here: (a)'s graph on the
+    card (``engine_graph``), its host copy, the start vertices dealt by
+    ``GreedyChunker`` over ``EC_SHARDS`` shards, and a world-size-1 NCCL
+    group and its mesh.  ``drive``, the launch window (``engine_cell``):
+    each engine cell's step (``core.distributed.engine_cell``) on every
+    shard's row once.  ``finish(got, launched)``, after the window: every
+    shard's count and overflow against the port's CPU run of the same
+    row on the host copy; one shard's step again with each
+    ``bitmap_superset`` and ``edge_exists`` call recorded, each held bit
+    for bit against its plain version on the card, the last step's join
+    also against a numpy ``searchsorted`` in int64, and both kernels'
+    true / false splits; ``EC_WARM`` warm passes of every shard's step
+    (the median a shard); a chunk of the heaviest row-0 vertices at
+    capacity ``EC_OVF_CAP`` must overflow on the card and on the CPU;
+    the peak memory; then (b): ``repro_torch.launch.dryrun`` in a
+    subprocess on ``DRYRUN_CELLS`` (single-pod mesh, fake tensors on
+    ``cuda``): every record ``ok``, no kernel launched and no device
+    memory allocated in it.  Returns ``(drive, finish)``."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import GreedyChunker, engine_chunk_step
+    from repro_torch.core.distributed import engine_cell
+    from repro_torch.launch.sharded import free_port
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    arch = get_arch("turbohom")
+    cfg = arch.config
+    info = {"card": card, "held_before_phase": held, "seed": EC_SEED}
+    t = time.perf_counter()
+    gr = engine_graph(torch, cfg, EC_SEED)
+    info["graph_build_s"] = time.perf_counter() - t
+    nbr, iptr, bm = gr["nbr_el"], gr["iptr_rows"], gr["label_bitmap"]
+    info["graph"] = {"n_vertices": cfg.n_vertices, "n_edges": cfg.n_edges,
+                     "row_labels": list(EC_ROW_LABELS),
+                     "join_block_start": gr["block_bases"][EC_ROW_LABELS[0]],
+                     "block_sizes": gr["block_sizes"],
+                     "closing_share": EC_CLOSING_SHARE,
+                     "label_share": EC_LABEL_SHARE}
+    t = time.perf_counter()
+    host = {k: gr[k].cpu() for k in ("nbr_el", "iptr_rows", "label_bitmap")}
+    info["host_copy_s"] = time.perf_counter() - t
+    deg0 = iptr[0, 1:] - iptr[0, :-1]
+    pool = torch.nonzero(deg0 == EC_START_DEGREE).flatten()
+    n_start = EC_SHARDS * cfg.chunk
+    check(pool.shape[0] >= n_start, f"phase 14: only {pool.shape[0]} "
+                                    f"vertices of row-0 degree "
+                                    f"{EC_START_DEGREE}")
+    pick = torch.linspace(0, pool.shape[0] - 1, n_start,
+                          device="cuda").long()
+    starts = pool[pick].to(torch.int32).cpu().numpy()
+    heavy = torch.topk(deg0, EC_OVF_CAP).indices.to(torch.int32)
+    heavy_host = heavy.cpu()
+    del pool, pick
+    t = time.perf_counter()
+    chunks, counts, _ = GreedyChunker(EC_SHARDS).partition(
+        starts, np.full(starts.max() + 1, EC_START_DEGREE, np.int64))
+    info["partition_ms"] = (time.perf_counter() - t) * 1e3
+    check(chunks.shape == (EC_SHARDS, cfg.chunk)
+          and (counts == cfg.chunk).all(),
+          f"phase 14: GreedyChunker dealt {counts.tolist()} (width "
+          f"{chunks.shape[1]}), not {cfg.chunk} a shard")
+    chunks_d = torch.from_numpy(chunks).cuda()
+    counts_d = torch.from_numpy(counts).cuda()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    cells = {}
+    for name in sorted(arch.cells):
+        meta = arch.cells[name].meta
+        step, args = engine_cell(mesh, cfg, meta)
+        rows = meta.get("n_steps", cfg.n_steps)
+        cells[name] = {"step": step, "meta": meta, "rows": rows,
+                       "arg_bytes": sum(a.numel() * a.element_size()
+                                        for a in args)}
+    info["setup_s"] = time.perf_counter() - t0
+
+    def run(name, s):
+        c = cells[name]
+        return c["step"](nbr, iptr[:c["rows"]], bm, chunks_d[s:s + 1],
+                         counts_d[s:s + 1])
+
+    def drive() -> dict:
+        """Each cell's step on every shard's row, once."""
+        return {name: [run(name, s) for s in range(EC_SHARDS)]
+                for name in cells}
+
+    def finish(got: dict, launched: dict) -> dict:
+        try:
+            return checks(got, launched)
+        finally:
+            dist.destroy_process_group()
+
+    def checks(got: dict, launched: dict) -> dict:
+        plains = plain_kernels(ref)
+        info["launches"] = {k: int(launched[k])
+                            for k in PATH_KERNELS["engine_cell"]}
+        out = {}
+        for name, c in cells.items():
+            meta = c["meta"]
+            vals = [tuple(int(x) for x in v.tolist()) for v in got[name]]
+            cpu = []
+            t = time.perf_counter()
+            for s in range(EC_SHARDS):
+                cnt, ovf = engine_chunk_step(
+                    host["nbr_el"], host["iptr_rows"][:c["rows"]],
+                    host["label_bitmap"], torch.from_numpy(chunks[s]),
+                    int(counts[s]), cap=meta["cap"], n_steps=c["rows"])
+                cpu.append((int(cnt), int(bool(ovf))))
+            cpu_s = time.perf_counter() - t
+            check(vals == cpu, f"phase 14 (a) {name}: the card's (count, "
+                               f"overflow) a shard {vals} != the CPU's {cpu}")
+            check(not any(o for _, o in vals),
+                  f"phase 14 (a) {name}: a shard overflowed {vals}")
+
+            # one shard again, each kernel call recorded
+            calls = {"bitmap_superset": [], "edge_exists": []}
+            orig = {k: getattr(ops, k) for k in calls}
+
+            def rec(k):
+                def wrapped(*a, **kw):
+                    o = orig[k](*a, **kw)
+                    calls[k].append((a, kw, o))
+                    return o
+                return wrapped
+
+            for k in calls:
+                setattr(ops, k, rec(k))
+            try:
+                again = run(name, 0).tolist()
+            finally:
+                for k, fn in orig.items():
+                    setattr(ops, k, fn)
+            check(tuple(again) == vals[0], f"phase 14 (a) {name}: shard 0 "
+                                           f"again gives {again}")
+            check(len(calls["bitmap_superset"]) == c["rows"]
+                  and len(calls["edge_exists"]) == 1,
+                  f"phase 14 (a) {name}: calls "
+                  f"{ {k: len(v) for k, v in calls.items()} }")
+            split = {}
+            for k, lst in calls.items():
+                trues = falses = 0
+                for a, kw, o in lst:
+                    err = max_abs_err(torch, o, plains[k](*a, **kw))
+                    check(err == 0, f"phase 14 (a) {name}: {k} differs "
+                                    f"from its plain version")
+                    n_true = int(o.sum())
+                    trues += n_true
+                    falses += o.numel() - n_true
+                check(trues > 0 and falses > 0,
+                      f"phase 14 (a) {name}: {k} answered {trues} true, "
+                      f"{falses} false")
+                split[k] = {"true": trues, "false": falses}
+            # the join's answers against numpy, int64 offsets
+            (jn, lo, hi, tg), jkw, jo = calls["edge_exists"][0]
+            lo_h, hi_h = lo.long().cpu().numpy(), hi.long().cpu().numpy()
+            tg_h, jo_h = tg.long().cpu().numpy(), jo.cpu().numpy()
+            nbr_h = host["nbr_el"].numpy()
+            want = np.zeros_like(jo_h)
+            for i in range(lo_h.shape[0]):
+                seg = nbr_h[lo_h[i]:hi_h[i]].astype(np.int64)
+                p = np.searchsorted(seg, tg_h[i])
+                want[i] = p < seg.shape[0] and seg[p] == tg_h[i]
+            check(np.array_equal(want, jo_h),
+                  f"phase 14 (a) {name}: the join differs from numpy's "
+                  f"searchsorted on {int((want != jo_h).sum())} probes")
+            check(int(lo_h.min()) > (1 << 30) and
+                  int((lo_h + hi_h).max()) > (1 << 31) - 1,
+                  f"phase 14 (a) {name}: the join's ranges do not pass "
+                  f"2^30 ({int(lo_h.min())})")
+            # the expansion a step: each bitmap call's ids that are valid
+            expansion = [int((kw["ids"] >= 0).sum())
+                         for _, kw, _ in calls["bitmap_superset"]]
+            # each kernel's largest call of the step: timed beside its
+            # plain version and its bound (the 1.23B-word adjacency)
+            kern_rows = {}
+            for k in calls:
+                a, kw, _ = max(calls[k], key=lambda x: x[0][0].numel()
+                               if k == "edge_exists" else
+                               int(x[1]["ids"].shape[0]))
+                byts, nops, by = bound(torch, ref, k, a, kw)
+                kern_rows[k] = {
+                    "ms": time_ms(torch, lambda: getattr(ops, k)(*a, **kw)),
+                    "plain_ms": time_ms(torch,
+                                        lambda: plains[k](*a, **kw)),
+                    "bound_ms": max(byts / PEAK_BYTES_S,
+                                    nops / PEAK_OPS_S) * 1e3,
+                    "bound_by": by, "probes": int(
+                        (kw.get("ids") if k == "bitmap_superset"
+                         else a[1]).shape[0]),
+                    "table_words": int(a[0].numel())}
+            del calls
+            # warm passes of every shard's step (CUDA events)
+            warm = []
+            for s in range(EC_SHARDS):
+                ms = []
+                for _ in range(EC_WARM):
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev0.record()
+                    run(name, s)
+                    ev1.record()
+                    ev1.synchronize()
+                    ms.append(ev0.elapsed_time(ev1))
+                warm.append(sorted(ms)[EC_WARM // 2])
+            # the heaviest vertices at a small capacity overflow in both
+            # routes
+            hv = engine_chunk_step(nbr, iptr[:c["rows"]], bm, heavy,
+                                   EC_OVF_CAP, cap=EC_OVF_CAP,
+                                   n_steps=c["rows"])
+            hc = engine_chunk_step(host["nbr_el"],
+                                   host["iptr_rows"][:c["rows"]],
+                                   host["label_bitmap"], heavy_host,
+                                   EC_OVF_CAP, cap=EC_OVF_CAP,
+                                   n_steps=c["rows"])
+            check(bool(hv[1]) and bool(hc[1]) and int(hv[0]) == int(hc[0]),
+                  f"phase 14 (a) {name}: the heaviest chunk at capacity "
+                  f"{EC_OVF_CAP}: card {int(hv[0]), bool(hv[1])}, CPU "
+                  f"{int(hc[0]), bool(hc[1])}")
+            total = sum(v[0] for v in vals)
+            out[name] = {
+                "cap": meta["cap"], "chunk": meta["chunk"],
+                "shards": EC_SHARDS, "count": total,
+                "shard_counts": [v[0] for v in vals],
+                "expansion_shard0": expansion, "kernel_split": split,
+                "kernels": kern_rows, "warm_ms": warm,
+                "warm_ms_median": sorted(warm)[EC_SHARDS // 2],
+                "cpu_s": cpu_s, "arg_bytes": c["arg_bytes"]}
+            log(f"phase 14 (a) {card}: {name}: {total} solutions over "
+                f"{EC_SHARDS} shards of {meta['chunk']} (cap {meta['cap']}, "
+                f"{c['arg_bytes'] / 1e9:.2f} GB of graph a rank), equal to "
+                f"the CPU run; shard 0's expansion a step {expansion}; "
+                f"split {split}; a shard step {out[name]['warm_ms_median']:.3f}"
+                f" ms warm median (max {max(warm):.3f}); kernels {kern_rows}")
+        peak = torch.cuda.max_memory_allocated()
+        for name, c in cells.items():
+            check(peak >= c["arg_bytes"], f"phase 14 (a): peak {peak} B "
+                                          f"below {name}'s {c['arg_bytes']}")
+        info["engine_cells"] = out
+        info["peak_bytes"] = peak
+        log(f"phase 14 (a) {card}: peak memory {peak / 1e9:.2f} GB; "
+            f"launches in the window {info['launches']}")
+        host.clear()
+        gr.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the dry run in a process of its own
+        t = time.perf_counter()
+        out_dir = ROOT / "chiprun_out" / "dryrun"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+               "single", "--force", "--out", str(out_dir)]
+        for cell in DRYRUN_CELLS:
+            cmd += ["--only", cell]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=DRYRUN_TIMEOUT_S, cwd=str(ROOT))
+        lines = res.stdout.strip().splitlines()
+        check(res.returncode == 0 and lines,
+              f"phase 14 (b): the dry run exited {res.returncode}: "
+              f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+        summary = json.loads(lines[-1])
+        recs = {}
+        for cell in DRYRUN_CELLS:
+            a, c = cell.split(":")[:2]
+            tag = "" if cell.count(":") == 1 else f"--{cell.split(':')[2]}"
+            r = json.loads((out_dir / "single" / f"{a}--{c}{tag}.json")
+                           .read_text())
+            check(r["status"] == "ok", f"phase 14 (b): {cell}: {r}")
+            recs[cell] = {k: r[k] for k in ("flops", "bytes_accessed",
+                                            "collective_bytes", "memory",
+                                            "depth", "trace_s")}
+        check(summary["failed"] == 0 and summary["ok"] == len(DRYRUN_CELLS),
+              f"phase 14 (b): {summary}")
+        check(not any(summary["launches"].values()),
+              f"phase 14 (b): the dry run launched {summary['launches']}")
+        check(summary["cuda_allocated"] == 0,
+              f"phase 14 (b): the dry run left {summary['cuda_allocated']} B "
+              f"allocated on the card")
+        info["dryrun"] = {"summary": summary, "records": recs,
+                          "wall_s": time.perf_counter() - t}
+        log(f"phase 14 (b) {card}: dry run of {len(DRYRUN_CELLS)} cells in "
+            f"a subprocess: all ok, launches {summary['launches']}, "
+            f"{summary['cuda_allocated']} B allocated on the card, "
+            f"{info['dryrun']['wall_s']:.1f} s")
+        info["total_s"] = time.perf_counter() - t0
+        log(f"phase 14: {info['total_s']:.1f} s")
+        return info
+
+    return drive, finish
+
+
 def held_bytes(torch, label: str) -> dict:
     """The device memory still allocated (after a collection and with the
     allocator's cache emptied), logged under ``label``."""
@@ -5919,6 +6348,18 @@ def main(argv=None) -> int:
     del drive, finish
     log(f"phase 13: {sharded_train['phase_s']:.1f} s")
     held.append(held_bytes(torch, "after phase 13"))
+    t_dry = time.perf_counter()
+    drive, finish = dryrun_phase(torch, ops, ref, card)
+    dryrun = finish(window("engine_cell", drive, recorder=None),
+                    by_path["engine_cell"])
+    dryrun["phase_s"] = time.perf_counter() - t_dry
+    del drive, finish
+    for row in table:
+        if row["name"] in dryrun["engine_cells"]["triangle_q2"]["kernels"]:
+            row["engine_cell"] = {
+                name: cell["kernels"][row["name"]]
+                for name, cell in dryrun["engine_cells"].items()}
+    log(f"phase 14: {dryrun['phase_s']:.1f} s")
 
     fill_launches(table, by_path)
     report = {"card": card, "torch": torch.__version__,
@@ -5927,7 +6368,7 @@ def main(argv=None) -> int:
               "params": params, "live": live, "serve": serve,
               "sharded": sharded, "zoo": zoo, "lm": lm, "moe": moe,
               "gnn": gnn, "sharded_train": sharded_train,
-              "held": held, "kernels": table,
+              "dryrun": dryrun, "held": held, "kernels": table,
               "efc_capacity_hist": hist,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

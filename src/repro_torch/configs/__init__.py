@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution over the reference's
 ten assigned archs: the dense LMs, the MoE LMs (DeepSeek-V2 with MLA,
-DBRX), the GNNs (GCN, PNA, MeshGraphNet, DimeNet) and DLRM.  The
-reference's engine workload (``turbohom``, its dry-run cells) comes with
-the sharding slice."""
+DBRX), the GNNs (GCN, PNA, MeshGraphNet, DimeNet) and DLRM, plus the
+paper's own engine workload (``turbohom``, its dry-run cells)."""
 
 from __future__ import annotations
 
@@ -20,7 +19,10 @@ _ARCH_MODULES = {
     "pna": "repro_torch.configs.pna",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "turbohom": "repro_torch.configs.turbohom",
 }
+
+ASSIGNED = tuple(k for k in _ARCH_MODULES if k != "turbohom")
 
 def get_arch(name: str) -> ArchDef:
     import importlib
@@ -36,5 +38,5 @@ def all_archs() -> list[str]:
     return sorted(_ARCH_MODULES)
 
 
-__all__ = ["ArchDef", "Cell", "get_arch", "all_archs",
+__all__ = ["ArchDef", "Cell", "get_arch", "all_archs", "ASSIGNED",
            "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"]

@@ -25,7 +25,7 @@ class Cell:
 @dataclass
 class ArchDef:
     name: str
-    family: str  # "lm" | "gnn" | "recsys"
+    family: str  # "lm" | "gnn" | "recsys" | "engine"
     config: Any
     cells: dict[str, Cell]
     # (cell_name) -> batch dict of meta tensors

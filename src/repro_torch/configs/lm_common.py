@@ -10,11 +10,10 @@ import torch
 from repro_torch.configs.common import LM_SHAPES, ArchDef, Cell, lm_input_specs
 from repro_torch.models import transformer
 from repro_torch.models.moe import MoEConfig
-from repro_torch.models.transformer import LMConfig, check_ported
+from repro_torch.models.transformer import LMConfig
 
 
 def lm_archdef(cfg: LMConfig, notes: str = "") -> ArchDef:
-    check_ported(cfg)
     cells = {name: Cell(name, meta["kind"], dict(meta))
              for name, meta in LM_SHAPES.items()}
 

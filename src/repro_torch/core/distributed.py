@@ -111,17 +111,25 @@ def _dp_layout(mesh) -> tuple[tuple[str, ...], int, int]:
     return dp, n_shards, row
 
 
+def _reduce_groups(value: torch.Tensor, groups: list,
+                   device: torch.device,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``value`` (an int64 vector on ``device``) reduced by ``op`` over
+    each group in turn, one ``all_reduce`` a group.  A gloo group on a CUDA
+    device reduces a host copy; any other group reduces in place (an NCCL
+    group on the card, a gloo one on the CPU, the dry run's fake one)."""
+    for grp in groups:
+        host = device.type == "cuda" and "gloo" in str(dist.get_backend(grp))
+        t = value.cpu() if host else value
+        dist.all_reduce(t, op=op, group=grp)
+        value = t
+    return value
+
+
 def _all_reduce_sum(value: torch.Tensor, groups: list,
                     device: torch.device) -> list[int]:
-    """``value`` (an int64 vector on ``device``) summed over each group in
-    turn, read to the host once.  An NCCL group reduces on the CUDA device;
-    any other (gloo) reduces a host copy."""
-    for grp in groups:
-        on_dev = device.type == "cuda" and "nccl" in str(dist.get_backend(grp))
-        t = value if on_dev else value.cpu()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=grp)
-        value = t
-    return value.tolist()
+    """:func:`_reduce_groups`, read to the host once."""
+    return _reduce_groups(value, groups, device).tolist()
 
 
 def run_sharded(executor: Executor, plan: ExecPlan, mesh,
@@ -254,3 +262,43 @@ def engine_chunk_step(nbr_el, iptr_rows, label_bitmap, chunk, chunk_count,
         b = nb[:cap]
         count = oki.sum(dtype=I32)
     return count, overflow
+
+
+def engine_cell(mesh, cfg, cell_meta: dict):
+    """The engine cell's per-rank step over ``mesh`` (the reference's
+    ``lower_engine_cell``; torch has no lowering, so the step itself):
+    ``(step, args)``.
+
+    ``step(nbr_el, iptr_rows, label_bitmap, chunks, counts)`` runs
+    :func:`engine_chunk_step` on this rank's own row of ``chunks [D,
+    chunk]`` / ``counts [D]`` (``D`` the data-parallel shard count, the row
+    from ``_dp_layout``), then, as the reference's ``psum`` / ``pmax``,
+    sums the count and takes the max of the overflow flag over each
+    data-parallel group in turn (``_reduce_groups``: two ``all_reduce``s a
+    group); it returns them as an int64 ``[count, overflow]`` tensor on the
+    inputs' device, the same on every rank.  ``args`` are ``meta`` tensors
+    of the cell's global shapes.  The dry run calls the step on fake
+    tensors, the card on real ones."""
+    dp, n_shards, row = _dp_layout(mesh)
+    cap = cell_meta["cap"]
+    n_steps = cell_meta.get("n_steps", cfg.n_steps)
+    w = (cfg.n_vlabels + 31) // 32
+
+    def step(nbr_el, iptr_rows, label_bitmap, chunks, counts):
+        dev = nbr_el.device
+        count, ovf = engine_chunk_step(nbr_el, iptr_rows, label_bitmap,
+                                       chunks[row], counts[row], cap=cap,
+                                       n_steps=n_steps)
+        groups = [mesh.get_group(a) for a in dp]
+        count = _reduce_groups(count.to(I64).reshape(1), groups, dev)
+        ovf = _reduce_groups(ovf.to(I64).reshape(1), groups, dev,
+                             op=dist.ReduceOp.MAX)
+        return torch.cat([count, ovf])
+
+    def meta(shape, dtype=I32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    args = (meta((cfg.n_edges,)), meta((n_steps, cfg.n_vertices + 1)),
+            meta((cfg.n_vertices, w)), meta((n_shards, cell_meta["chunk"])),
+            meta((n_shards,)))
+    return step, args

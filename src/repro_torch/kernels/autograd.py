@@ -10,8 +10,10 @@ kernel on a card, its plain version on the CPU; one launch per table) and
 the backward is plain torch, since the reference's gradient is no Pallas
 kernel:
 
-``d_table = zeros_like(table).index_add_(0, clamp(idx[idx >= 0],
-max=V-1), d_out rows)`` (dense, as JAX's is), and with weights that need
+``d_table = zeros_like(table).index_add_(0, clamp(idx, max=V-1), d_out
+rows)`` (dense, as JAX's is), padding's rows sent to a spare row ``V``
+that the gradient leaves out (so no selection of the ids whose length
+depends on their values), and with weights that need
 a gradient ``d_w[s, k] = <table[idx[s, k]], d_out[s]>`` for ``idx >= 0``
 (0 for padding).  Only ``idx`` (and the weights) are saved, never the
 gathered rows.  On a card ``index_add_`` sums with float atomics, in an
@@ -49,9 +51,12 @@ class EmbeddingBagSum(torch.autograd.Function):
             if weights is not None:
                 src = src * weights.to(d_out.dtype)[:, :, None]
             src = src.expand(*idx.shape, d_out.shape[1])
-            d_table = torch.zeros((ctx.v, d_out.shape[1]), dtype=d_out.dtype,
-                                  device=d_out.device)
-            d_table.index_add_(0, rows[keep], src[keep])
+            # rows [0, V) and a spare row V for padding, left out
+            d_table = torch.zeros((ctx.v + 1, d_out.shape[1]),
+                                  dtype=d_out.dtype, device=d_out.device)
+            d_table.index_add_(0, torch.where(keep, rows, ctx.v).reshape(-1),
+                               src.reshape(-1, d_out.shape[1]))
+            d_table = d_table[:ctx.v]
         if weights is not None and ctx.needs_input_grad[2]:
             dots = torch.einsum("skd,sd->sk", table[rows.clamp(min=0)].to(
                 d_out.dtype), d_out)

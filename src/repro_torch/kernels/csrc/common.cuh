@@ -34,14 +34,16 @@ __device__ __forceinline__ bool superset(const int32_t* __restrict__ row,
 // at most n_iters halving rounds that stops once its range is empty; the
 // reference runs exactly n_iters rounds, and the rounds after the range
 // empties change nothing it reports, so the two agree for every n_iters.
-// Indices clamp into [0, m) as the reference's gathers do.
+// Indices clamp into [0, m) as the reference's gathers do.  The midpoint is
+// l + (h - l) / 2: l + h overflows int once a range lies past offset 2^30
+// (an adjacency of 1.23e9 words holds such ranges).
 __device__ __forceinline__ bool sorted_contains(const int32_t* __restrict__ nbr,
                                                 int m, int lo0, int hi0,
                                                 int t, int n_iters) {
   int l = lo0;
   int h = hi0;
   for (int it = 0; it < n_iters && l < h; ++it) {
-    const int mid = (l + h) >> 1;
+    const int mid = l + ((h - l) >> 1);
     if (__ldg(nbr + clampi(mid, 0, m - 1)) < t) {
       l = mid + 1;
     } else {

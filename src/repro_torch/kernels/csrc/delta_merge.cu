@@ -130,14 +130,15 @@ __device__ __forceinline__ void resolve(const Args& a, Slots<kN>& s) {
 #pragma unroll
     for (int q = 0; q < kN; ++q) {
       t[q] = l[q] < h[q]
-                 ? __ldg(a.tomb + repro::clampi((l[q] + h[q]) >> 1, 0,
+                 ? __ldg(a.tomb + repro::clampi(l[q] + ((h[q] - l[q]) >> 1), 0,
                                                 a.m_tomb - 1))
                  : 0;
     }
 #pragma unroll
     for (int q = 0; q < kN; ++q) {
       if (l[q] < h[q]) {
-        const int mid = (l[q] + h[q]) >> 1;
+        // l + (h - l) / 2: a tombstone run may lie past offset 2^30
+        const int mid = l[q] + ((h[q] - l[q]) >> 1);
         if (t[q] < s.v[q]) {
           l[q] = mid + 1;
         } else {

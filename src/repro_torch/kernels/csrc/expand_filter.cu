@@ -183,7 +183,8 @@ __device__ __forceinline__ void find_slots(
     int lo = u0;
     int hi = u1;
     while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
+      // lo + (hi - lo) / 2: row counts reach 2^31 - 1, where lo + hi wraps
+      const int mid = lo + ((hi - lo) >> 1);
       if (at(s_offs, a.offs, mid) <= k) {
         lo = mid + 1;
       } else {

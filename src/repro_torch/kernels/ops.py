@@ -17,6 +17,13 @@ aggregation entry points; :class:`EmbeddingBagSum` is the fixed form with
 its gradient, the model zoo's embedding bag).  ``ragged_expand`` and
 ``delta_merge_labeled`` are plain tensor code in the reference too and run
 as such on every device.
+
+Each kernel is an operator of the ``repro_torch`` namespace (:func:`_op`),
+its body registered for CPU and CUDA tensors and a shape function beside
+it: under ``FakeTensorMode`` (the dry run's trace) the dispatcher calls
+the shape function, so a fake tensor reaches neither a launch nor a plain
+version, and the trace sees the kernel as one op by its name.  The public
+wrappers below keep their Python signatures and call the operators.
 """
 
 from __future__ import annotations
@@ -49,6 +56,37 @@ _EFC_MIN_TILES = 4096
 _EFC_EPOCH_PERIOD = 1 << 30
 # (device index, stream) -> [status buffer, calls made on it since zeroed]
 _EFC_SCRATCH: dict[tuple[int, int], list] = {}
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+
+
+def _op(schema: str, fake):
+    """Register the decorated body as the operator ``repro_torch::<name>``
+    of ``schema``, for CPU and CUDA tensors, with ``fake`` (the same
+    arguments, outputs of the contract's shapes) as its shape function,
+    which also refuses inputs on two devices; returns the operator."""
+    name = schema.split("(", 1)[0]
+
+    def shapes(*args):
+        devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+        if len(devices) > 1:
+            raise ValueError(f"kernel inputs must all lie on one device, "
+                             f"got {sorted(map(str, devices))}")
+        return fake(*args)
+
+    def register(body):
+        _LIB.define(schema)
+        for key in ("CPU", "CUDA"):
+            _LIB.impl(name, body, key)
+        torch.library.register_fake(f"repro_torch::{name}", shapes, lib=_LIB)
+        return getattr(torch.ops.repro_torch, name).default
+
+    return register
+
+
+def _bools(n: int, like: torch.Tensor) -> torch.Tensor:
+    return like.new_empty(n, dtype=torch.bool)
 
 
 def reset_launches() -> None:
@@ -104,6 +142,13 @@ def _launch(name: str, entry: str, *args) -> None:
 
 def edge_exists(nbr, lo, hi, target, n_iters: int = 32):
     """IsJoinable: ``target[i] ∈ nbr[lo[i]:hi[i])``, bool [B]."""
+    return _edge_exists(nbr, lo, hi, target, n_iters)
+
+
+@_op("edge_exists(Tensor nbr, Tensor lo, Tensor hi, Tensor target, "
+     "int n_iters) -> Tensor",
+     lambda nbr, lo, hi, target, n_iters: _bools(lo.shape[0], lo))
+def _edge_exists(nbr, lo, hi, target, n_iters):
     if not _on_cuda(nbr, lo, hi, target):
         return _ref.edge_exists_ref(nbr, lo, hi, target, n_iters=n_iters)
     _check("edge_exists", nbr, lo, hi, target, same_len=(lo, hi, target))
@@ -126,8 +171,17 @@ def tile_membership(a, b, iptr=None, probe=None, tb=None):
     ``n = len(iptr) - 1``; bool [R].  ``probe`` may be a strided view (a
     binding-table column).  See
     :func:`repro_torch.kernels.ref.tile_membership_ref`."""
-    if iptr is not None:
-        return _tile_range(a, b, iptr, probe, tb)
+    if iptr is None:
+        return _tile_membership(a, b)
+    if probe is None or tb is None:
+        raise ValueError("tile_membership: the range form takes iptr, probe "
+                         "and tb")
+    return _tile_range(a, b, iptr, probe, tb)
+
+
+@_op("tile_membership(Tensor a, Tensor b) -> Tensor",
+     lambda a, b: a.new_empty(a.shape, dtype=torch.bool))
+def _tile_membership(a, b):
     if not _on_cuda(a, b):
         return _ref.tile_membership_ref(a, b)
     _check("tile_membership", a, b)
@@ -142,10 +196,10 @@ def tile_membership(a, b, iptr=None, probe=None, tb=None):
     return out
 
 
+@_op("tile_membership_range(Tensor v, Tensor nbr, Tensor iptr, "
+     "Tensor probe, int tb) -> Tensor",
+     lambda v, nbr, iptr, probe, tb: _bools(v.shape[0], v))
 def _tile_range(v, nbr, iptr, probe, tb):
-    if probe is None or tb is None:
-        raise ValueError("tile_membership: the range form takes iptr, probe "
-                         "and tb")
     if not _on_cuda(v, nbr, iptr, probe):
         return _ref.tile_membership_ref(v, nbr, iptr=iptr, probe=probe,
                                         tb=tb)
@@ -195,6 +249,14 @@ def bitmap_superset(bitmap, required, ids=None):
     """Row-wise ``(bitmap & required) == required``, bool [B].  With int32
     ``ids`` the rows ``bitmap[clamp(ids, 0, V-1)]`` are tested in the same
     launch (no gathered copy), bool [len(ids)]."""
+    return _bitmap_superset(bitmap, required, ids)
+
+
+@_op("bitmap_superset(Tensor bitmap, Tensor required, Tensor? ids) -> "
+     "Tensor",
+     lambda bitmap, required, ids: _bools(
+         bitmap.shape[0] if ids is None else ids.shape[0], bitmap))
+def _bitmap_superset(bitmap, required, ids):
     ts = (bitmap, required) if ids is None else (bitmap, required, ids)
     if not _on_cuda(*ts):
         return _ref.bitmap_superset_ref(bitmap, required, ids=ids)
@@ -204,6 +266,12 @@ def bitmap_superset(bitmap, required, ids=None):
 def signature_filter(sig, v, required):
     """Neighborhood-signature prune probe: gather ``sig[clamp(v)]`` rows and
     superset-test them against ``required``, bool [B]."""
+    return _signature_filter(sig, v, required)
+
+
+@_op("signature_filter(Tensor sig, Tensor v, Tensor required) -> Tensor",
+     lambda sig, v, required: _bools(v.shape[0], v))
+def _signature_filter(sig, v, required):
     if not _on_cuda(sig, v, required):
         return _ref.signature_filter_ref(sig, v, required)
     return _probe("signature_filter", sig, v, required)
@@ -222,6 +290,21 @@ def expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
     if bound_id.numel() != 1:
         raise ValueError(f"expand_filter_compact: a bound id of "
                          f"{bound_id.numel()} elements, expected 1")
+    return _expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
+                                  bound_id, capacity)
+
+
+def _efc_fake(nbr, bitmap, start, deg, offs, label_mask, bound_id,
+              capacity):
+    return (nbr.new_empty(capacity), nbr.new_empty(capacity),
+            nbr.new_empty(()))
+
+
+@_op("expand_filter_compact(Tensor nbr, Tensor bitmap, Tensor start, "
+     "Tensor deg, Tensor offs, Tensor label_mask, Tensor bound_id, "
+     "int capacity) -> (Tensor, Tensor, Tensor)", _efc_fake)
+def _expand_filter_compact(nbr, bitmap, start, deg, offs, label_mask,
+                           bound_id, capacity):
     if not _on_cuda(nbr, bitmap, start, deg, offs, label_mask, bound_id):
         return _ref.expand_filter_compact_ref(nbr, bitmap, start, deg, offs,
                                               label_mask, bound_id, capacity)
@@ -322,9 +405,25 @@ def delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
     ``i`` reads ``field[clamp(row[i])]`` in the same launch (no per-slot
     copies).  ``d_start``, ``t_lo`` and ``t_hi`` may be ``None`` and then
     read as 0.  See :func:`repro_torch.kernels.ref.delta_merge_ref`."""
+    return _delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg,
+                        d_start, t_lo, t_hi, j, valid, n_iters, row)
+
+
+def _delta_merge_fake(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg,
+                      d_start, t_lo, t_hi, j, valid, n_iters, row):
+    return (j.new_empty(j.shape[0], dtype=torch.int32),
+            _bools(j.shape[0], j))
+
+
+@_op("delta_merge(Tensor? base_nbr, Tensor? delta_nbr, Tensor? tomb_nbr, "
+     "Tensor? b_start, Tensor? b_deg, Tensor? d_start, Tensor? t_lo, "
+     "Tensor? t_hi, Tensor j, Tensor valid, int n_iters, Tensor? row) -> "
+     "(Tensor, Tensor)", _delta_merge_fake)
+def _delta_merge(base_nbr, delta_nbr, tomb_nbr, b_start, b_deg, d_start,
+                 t_lo, t_hi, j, valid, n_iters, row):
+    fields = (b_start, b_deg, d_start, t_lo, t_hi)
     base_nbr, delta_nbr, tomb_nbr = (_one_slot(a, j) for a in
                                      (base_nbr, delta_nbr, tomb_nbr))
-    fields = (b_start, b_deg, d_start, t_lo, t_hi)
     given = [f for f in fields if f is not None]
     per_slot = (j,) + (tuple(given) if row is None else (row,))
     if not _on_cuda(base_nbr, delta_nbr, tomb_nbr, *given, *per_slot,
@@ -378,6 +477,14 @@ def segment_gather_fixed(table, idx, weights=None):
     (``< 0``: padding; ``≥ V``: row ``V-1``), float32 accumulation, the
     table's dtype out.  See
     :func:`repro_torch.kernels.ref.segment_gather_fixed_ref`."""
+    return _segment_gather_fixed(table, idx, weights)
+
+
+@_op("segment_gather_fixed(Tensor table, Tensor idx, Tensor? weights) -> "
+     "Tensor",
+     lambda table, idx, weights: table.new_empty((idx.shape[0],
+                                                  table.shape[1])))
+def _segment_gather_fixed(table, idx, weights):
     ts = (table, idx) if weights is None else (table, idx, weights)
     if not _on_cuda(*ts):
         return _ref.segment_gather_fixed_ref(table, idx, weights=weights)
@@ -410,6 +517,15 @@ def segment_gather_sum(table, indices, segments, num_segments, weights=None):
     ``segment_gather`` launch, which reads the permutation itself
     (:func:`_gather_sum_launch`).  There is no hotness or table-size
     bound."""
+    return _segment_gather_sum(table, indices, segments, num_segments,
+                               weights)
+
+
+@_op("segment_gather_sum(Tensor table, Tensor indices, Tensor segments, "
+     "int num_segments, Tensor? weights) -> Tensor",
+     lambda table, indices, segments, num_segments, weights:
+     table.new_empty((num_segments, table.shape[1])))
+def _segment_gather_sum(table, indices, segments, num_segments, weights):
     ts = (table, indices, segments) + (() if weights is None else (weights,))
     if not _on_cuda(*ts):
         return _ref.segment_gather_sum_ref(table, indices, segments,

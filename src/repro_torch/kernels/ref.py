@@ -15,6 +15,14 @@ from __future__ import annotations
 import torch
 
 
+def _midpoint(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``floor((lo + hi) / 2)`` without forming ``lo + hi``, which wraps in
+    int32 once it passes 2^31 - 1 (any range past offset 2^30 of a
+    billion-word adjacency); equal to ``(lo + hi) >> 1`` wherever that does
+    not wrap."""
+    return lo + ((hi - lo) >> 1)
+
+
 def edge_exists_ref(nbr: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                     target: torch.Tensor, n_iters: int = 32) -> torch.Tensor:
     """Batched lower-bound binary search: ``target ∈ nbr[lo:hi)``, bool [B]
@@ -24,7 +32,7 @@ def edge_exists_ref(nbr: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     hi0 = hi.to(torch.int32)
     lo_, hi_ = lo0, hi0
     for _ in range(n_iters):
-        mid = (lo_ + hi_) >> 1
+        mid = _midpoint(lo_, hi_)
         go_right = nbr[mid.clamp(0, m - 1)] < target
         lo_, hi_ = torch.where(go_right, mid + 1, lo_), \
             torch.where(go_right, hi_, mid)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs import all_archs, get_arch
+from repro_torch.configs import ASSIGNED, get_arch
 from repro_torch.configs.common import GraphDims
 from repro_torch.core.exec import resolve_device
 from repro_torch.train.data import (RecsysStream, SampledGraphStream,
@@ -74,7 +74,7 @@ def _not_sampled(arch) -> list[str]:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, choices=all_archs())
+    ap.add_argument("--arch", required=True, choices=sorted(ASSIGNED))
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=None)

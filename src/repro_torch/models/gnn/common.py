@@ -42,35 +42,31 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     idx = torch.where(idx < 0, idx + n, idx)
     inside = (idx >= 0) & (idx < n)
     rows = x[idx.clamp(0, max(n, 1) - 1)]
-    if not x.requires_grad or bool(inside.all()):
+    if not x.requires_grad:
         return rows
     return torch.where(inside.view((-1,) + (1,) * (x.dim() - 1)), rows,
                        rows.detach())
 
 
-def _kept(x: torch.Tensor, seg: torch.Tensor, n: int):
-    """The entries whose segment lies in ``[0, n)``, and their segments as
-    int64."""
+def _spare(seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``seg`` as int64, an entry whose segment lies outside ``[0, n)``
+    sent to a spare segment ``n`` that the result leaves out (no
+    selection whose length depends on the values)."""
     seg = seg.long()
-    keep = (seg >= 0) & (seg < n)
-    if bool(keep.all()):
-        return x, seg
-    return x[keep], seg[keep]
+    return torch.where((seg >= 0) & (seg < n), seg, n)
 
 
 def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    x, seg = _kept(x, seg, n)
-    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+    out = torch.zeros((n + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    return out.index_add(0, seg, x)
+    return out.index_add(0, _spare(seg, n), x)[:n]
 
 
 def _segment_extreme(x, seg, n, reduce: str, fill) -> torch.Tensor:
-    x, seg = _kept(x, seg, n)
-    out = torch.full((n,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+    out = torch.full((n + 1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
                      device=x.device)
-    index = seg.view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
-    return out.scatter_reduce(0, index, x, reduce, include_self=True)
+    index = _spare(seg, n).view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
+    return out.scatter_reduce(0, index, x, reduce, include_self=True)[:n]
 
 
 def _lowest(dtype: torch.dtype):

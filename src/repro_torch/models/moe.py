@@ -114,14 +114,78 @@ def moe_apply(moe: MoE, x: torch.Tensor, mcfg: MoEConfig):
     **Combine**: each token's k products, weighted, are brought back by
     the inverse permutation, in ascending expert order (the order in which
     the reference's scatter-add meets them), and summed one by one in the
-    compute dtype starting from zero.  The shared experts come last."""
+    compute dtype starting from zero.  The shared experts come last.
+
+    On DTensors (the DP+TP step, experts sharded over ``model``) the
+    routed part runs per rank (:func:`_moe_sharded`)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(moe.w_gate, DTensor):
+        y, aux = _moe_sharded(moe, x, mcfg)
+    else:
+        y, aux = _routed(x, moe.router, moe.w_gate, moe.w_up, moe.w_down,
+                         mcfg, 0)
+    if mcfg.n_shared:
+        sp = moe.shared
+        y = y + swiglu(x, sp.w_gate, sp.w_up, sp.w_down)
+    return y, aux
+
+
+def _moe_sharded(moe: MoE, x, mcfg: MoEConfig):
+    """The routed experts on DTensors, with ``local_map``: DTensor has no
+    rule for the dispatch's sort and scatter.  Every rank takes the whole
+    token set (``x`` and the router replicated: the capacity and the
+    ranks within an expert are global, as the plain step's) and its own
+    ``model`` shard of the experts (gathered over the other axes), routes
+    all tokens and runs its experts only (:func:`_routed` with an expert
+    offset).  ``y`` is then a partial sum over ``model``, as is the aux
+    loss, which only ``model`` rank 0 contributes (the gradients of ``x``
+    and the router are partial over ``model`` too); both are then summed
+    over ``model`` and replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = moe.w_gate.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if "model" not in names:
+        raise ValueError(f"a sharded MoE needs a 'model' mesh axis, got "
+                         f"{names}")
+    m = names.index("model")
+    rep = [Replicate()] * mesh.ndim
+    experts = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+    partial = [Partial() if i == m else Replicate() for i in range(mesh.ndim)]
+
+    def local(x, router, w_gate, w_up, w_down):
+        rank = mesh.get_local_rank("model")
+        y, aux = _routed(x, router, w_gate, w_up, w_down, mcfg,
+                         rank * w_gate.shape[0])
+        return y, aux if rank == 0 else torch.zeros_like(aux)
+
+    y, aux = local_map(
+        local, out_placements=(partial, partial),
+        in_placements=(rep, rep, experts, experts, experts),
+        in_grad_placements=(partial, partial, experts, experts, experts),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, moe.router, moe.w_gate, moe.w_up, moe.w_down)
+    # the sums over model, replicated (laid out as a token-flattened x
+    # they could land as a strided shard, which DTensor's reshape back to
+    # [B, S, d] mislays)
+    return y.redistribute(mesh, rep), aux.redistribute(mesh, rep)
+
+
+def _routed(x, router, w_gate, w_up, w_down, mcfg: MoEConfig, e0: int):
+    """The routed experts' output and the aux loss (see
+    :func:`moe_apply`), for experts ``e0 .. e0 + len(w_gate) - 1``: the
+    routing and every rank within an expert are those of all ``E``
+    experts; an assignment to another expert reads a zero row."""
     t, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
+    el = w_gate.shape[0]
     a = t * k
     cap = capacity(t, mcfg)
     dev = x.device
 
-    probs, top_i, top_p = route(x, moe.router, mcfg)
+    probs, top_i, top_p = route(x, router, mcfg)
 
     # Switch aux loss: w · E · Σ_e f_e · p_e (f_e: the share of tokens
     # whose top-k holds e, from the integer counts)
@@ -135,30 +199,33 @@ def moe_apply(moe: MoE, x: torch.Tensor, mcfg: MoEConfig):
     me = probs.mean(dim=0)
     aux = mcfg.router_aux_weight * e * torch.sum(fe * me)
 
-    # dispatch: an expert over capacity keeps C - 1 (see the docstring)
+    # dispatch: an expert over capacity keeps C - 1 (see moe_apply)
     rank = torch.arange(a, device=dev) - estart[se]
     room = torch.where(count > cap, cap - 1, cap)
     keep = rank < room[se]
-    # each kept assignment's slot e·C + rank; a dropped one gets a slot of
-    # its own past the buffer, so every scatter index is unique
-    dest = torch.where(keep, se * cap + rank,
-                       e * cap + torch.arange(a, device=dev))
+    if el != e:
+        keep = keep & (se >= e0) & (se < e0 + el)
+    # each kept assignment's slot (e - e0)·C + rank; a dropped one (or one
+    # of another rank's experts) gets a slot of its own past the buffer,
+    # so every scatter index is unique
+    dest = torch.where(keep, (se - e0) * cap + rank,
+                       el * cap + torch.arange(a, device=dev))
     # the rows of the sorted assignments: each token repeated k times (its
     # gradient a sum over the k), then permuted
     xs = x[:, None].expand(t, k, d).reshape(a, d)[order]
-    buf = x.new_zeros((e * cap + a, d)).index_put((dest,), xs)
-    buf = buf[:e * cap].view(e, cap, d)
+    buf = x.new_zeros((el * cap + a, d)).index_put((dest,), xs)
+    buf = buf[:el * cap].view(el, cap, d)
 
     dt = x.dtype
-    h = torch.bmm(buf, moe.w_gate.to(dt))
-    h = torch.nn.functional.silu(h) * torch.bmm(buf, moe.w_up.to(dt))
-    h = torch.bmm(h, moe.w_down.to(dt))
+    h = torch.bmm(buf, w_gate.to(dt))
+    h = torch.nn.functional.silu(h) * torch.bmm(buf, w_up.to(dt))
+    h = torch.bmm(h, w_down.to(dt))
 
     # combine: h back to the sorted assignments (a dropped one reads a
     # zero row of its own), weighted, then to each token in ascending
     # expert order (a stable sort of the sorted list by token), summed
     # one at a time from zero
-    h = torch.cat([h.view(e * cap, d), h.new_zeros((a, d))])
+    h = torch.cat([h.view(el * cap, d), h.new_zeros((a, d))])
     sw = top_p.reshape(-1)[order]
     gathered = h[dest] * sw[:, None].to(dt)
     by_token = torch.argsort(order // k, stable=True)
@@ -166,9 +233,4 @@ def moe_apply(moe: MoE, x: torch.Tensor, mcfg: MoEConfig):
     y = x.new_zeros((t, d))
     for j in range(k):
         y = y + per_token[:, j]
-
-    if mcfg.n_shared:
-        sp = moe.shared
-        y = y + swiglu(x, sp.w_gate, sp.w_up, sp.w_down)
     return y, aux
-

@@ -70,13 +70,15 @@ class DLRM(nn.Module):
         self.top = mlp_init([cfg.n_interact + cfg.bot_mlp[-1], *cfg.top_mlp],
                             **kw)
 
-    def forward(self, batch: dict) -> torch.Tensor:
+    def forward(self, batch: dict, emb: torch.Tensor | None = None
+                ) -> torch.Tensor:
         """Logits ``[B]`` of ``dense [B, n_dense]``, ``sparse int32 [B, F,
         K]`` (``-1`` padded)."""
         dtype = self.cfg.dtype
         dense = batch["dense"].to(dtype)
         z_bot = mlp_apply(self.bot, dense, final_act=True)  # [B, D]
-        emb = embed_bags(self.tables, batch["sparse"], dtype)  # [B, F, D]
+        if emb is None:  # (the sharded step passes its own bags)
+            emb = embed_bags(self.tables, batch["sparse"], dtype)  # [B, F, D]
         feats = torch.cat([z_bot[:, None, :], emb], dim=1)  # [B, F+1, D]
         inter = torch.bmm(feats, feats.transpose(1, 2))  # [B, F+1, F+1]
         f = feats.shape[1]
@@ -97,16 +99,18 @@ def embed_bags(tables, sparse_idx: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack(outs, dim=1)  # [B, F, D]
 
 
-def loss_fn(model: DLRM, batch: dict) -> torch.Tensor:
+def loss_fn(model: DLRM, batch: dict,
+            emb: torch.Tensor | None = None) -> torch.Tensor:
     """Mean numerically stable BCE-with-logits."""
-    logit = model(batch).float()
+    logit = model(batch, emb).float()
     y = batch["labels"].float()
     loss = torch.clamp(logit, min=0) - logit * y \
         + torch.log1p(torch.exp(-torch.abs(logit)))
     return torch.mean(loss)
 
 
-def retrieval_score(model: DLRM, batch: dict) -> torch.Tensor:
+def retrieval_score(model: DLRM, batch: dict,
+                    emb: torch.Tensor | None = None) -> torch.Tensor:
     """Score 1 query against N candidates: [N] logits via one GEMV.
 
     batch: dense [1, n_dense], sparse [1, F, K], cand [N, D] (item tower
@@ -115,6 +119,7 @@ def retrieval_score(model: DLRM, batch: dict) -> torch.Tensor:
     """
     dtype = model.cfg.dtype
     z_bot = mlp_apply(model.bot, batch["dense"].to(dtype), final_act=True)
-    emb = embed_bags(model.tables, batch["sparse"], dtype)  # [1, F, D]
+    if emb is None:
+        emb = embed_bags(model.tables, batch["sparse"], dtype)  # [1, F, D]
     user = z_bot + torch.mean(emb, dim=1)  # [1, D]
     return batch["cand"].to(dtype) @ user[0]  # [N]

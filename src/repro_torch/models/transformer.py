@@ -27,8 +27,9 @@ MLA's full attention runs through the same ``_gqa`` (one KV head a query
 head, the RoPE key broadcast over the heads); its absorbed decode keeps
 the reference's own numerics (two logits products each rounded to the
 compute dtype and added in it, a -1e30 mask, a float32 softmax).
-``remat_policy="dots"`` is not ported yet: it raises
-``NotImplementedError``.
+``remat_policy="dots"`` saves the products without batch dimensions in
+the forward and recomputes the rest of a layer in the backward (the
+reference's ``dots_with_no_batch_dims_saveable``).
 """
 
 from __future__ import annotations
@@ -70,7 +71,8 @@ class LMConfig:
     moe: MoEConfig | None = None
     remat: bool = True
     # remat policy: "full" (recompute each layer in the backward) or
-    # "dots" (save matmul outputs; not ported)
+    # "dots" (save the products without batch dimensions, recompute the
+    # rest)
     remat_policy: str = "full"
     # keep attention logits in float32 (stable softmax) or in the compute
     # dtype (max and sum still in float32)
@@ -119,15 +121,6 @@ class LMConfig:
 
     def active_param_count(self) -> int:
         return self._counts()[1]
-
-
-def check_ported(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet,
-    naming the ROADMAP item that brings it."""
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' is not ported yet: it comes with sharding "
-            "and the dry run, ROADMAP Queue 1 item 3")
 
 
 # --------------------------------------------------------------------------
@@ -230,7 +223,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
         self.embed = nn.Parameter(embed_init(cfg.vocab, cfg.d_model, **kw))
@@ -257,6 +249,39 @@ class TransformerLM(nn.Module):
 # --------------------------------------------------------------------------
 
 
+def _heads(t, n: int, dh: int):
+    """``t [B, S, n·dh]`` as ``[B, S, n, dh]``.  A DTensor sharded on its
+    last dimension over mesh dimensions whose size does not divide ``n``
+    (12 heads over 16 ranks) is replicated over them first: DTensor splits
+    a sharded dimension only evenly."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    b, s, _ = t.shape
+    if isinstance(t, DTensor):
+        last = Shard(t.ndim - 1)
+        ways = math.prod(t.device_mesh.size(i)
+                         for i, p in enumerate(t.placements) if p == last)
+        if n % ways:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p == last else p for p in t.placements])
+    return t.reshape(b, s, n, dh)
+
+
+def _merge_heads(out):
+    """``out [B, S, H, D]`` as ``[B, S, H·D]``.  On a DTensor the merged
+    tensor is redistributed to its own placements: a no-op forward, whose
+    backward brings the cotangent (sharded on ``H·D`` by a row-parallel
+    product) back to them before the merge's backward splits the heads,
+    which DTensor refuses where the shards do not divide ``H``."""
+    from torch.distributed.tensor import DTensor
+
+    b, s = out.shape[:2]
+    flat = out.reshape(b, s, -1)
+    if isinstance(flat, DTensor):
+        flat = flat.redistribute(flat.device_mesh, flat.placements)
+    return flat
+
+
 def _project(x, attn: Attention, cfg: LMConfig, sin, cos):
     """q [B, S, Hq, D], k and v [B, S, Hkv, D]: projections, biases,
     qk-norm, then RoPE on q and k."""
@@ -268,9 +293,9 @@ def _project(x, attn: Attention, cfg: LMConfig, sin, cos):
         q = q + attn.bq.to(x.dtype)
         k = k + attn.bk.to(x.dtype)
         v = v + attn.bv.to(x.dtype)
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = _heads(q, cfg.n_heads, cfg.d_head)
+    k = _heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = _heads(v, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(q, attn.q_norm)
         k = rmsnorm(k, attn.k_norm)
@@ -283,12 +308,14 @@ def _attention_full(x, attn, cfg: LMConfig, sin, cos):
         return _mla_full(x, attn, cfg, sin, cos)
     q, k, v = _project(x, attn, cfg, sin, cos)
     out = _attend(q, k, v, fp32_logits=cfg.attn_fp32_logits)
-    return out.reshape(b, s, -1) @ attn.wo.to(x.dtype)
+    return _merge_heads(out) @ attn.wo.to(x.dtype)
 
 
-def _attend(q, k, v, fp32_logits: bool = True):
-    """Causal :func:`_gqa` of the training path.  On DTensors (the DP+TP
-    step) it runs on each rank's own batch rows and heads
+def _attend(q, k, v, fp32_logits: bool = True, causal: bool = True,
+            kv_len=None):
+    """:func:`_gqa` (causal on the training path; the decode step passes
+    ``causal=False`` and ``kv_len``).  On DTensors (the DP+TP step and
+    the dry run's decode) it runs on each rank's own batch rows and heads
     (``local_map``): attention is independent across both, and DTensor
     has no rule for the batched product's fold of a batch dimension and a
     head dimension sharded over different mesh axes.  A placement other
@@ -298,7 +325,8 @@ def _attend(q, k, v, fp32_logits: bool = True):
     from torch.distributed.tensor import DTensor
 
     if not isinstance(q, DTensor):
-        return _gqa(q, k, v, causal=True, fp32_logits=fp32_logits)
+        return _gqa(q, k, v, causal=causal, kv_len=kv_len,
+                    fp32_logits=fp32_logits)
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -310,7 +338,8 @@ def _attend(q, k, v, fp32_logits: bool = True):
     q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
 
     def local(q, k, v):
-        return _gqa(q, k, v, causal=True, fp32_logits=fp32_logits)
+        return _gqa(q, k, v, causal=causal, kv_len=kv_len,
+                    fp32_logits=fp32_logits)
 
     return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
                      device_mesh=mesh)(q, k, v)
@@ -405,13 +434,44 @@ def _ffn(h, mlp: SwiGLU):
     return swiglu(h, mlp.w_gate, mlp.w_up, mlp.w_down)
 
 
+def _tokens(h):
+    """``h [B, S, d]`` as the MoE's ``[B·S, d]``.  A DTensor keeps only its
+    batch sharding (the rest replicated, a partial sum reduced), and the
+    flattened tensor is redistributed to its own placements: a no-op
+    forward whose backward brings the cotangent back to them before the
+    flatten's backward, which DTensor mislays for a token dimension
+    sharded over two mesh axes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    b, s, d = h.shape
+    if not isinstance(h, DTensor):
+        return h.reshape(b * s, d)
+    mesh = h.device_mesh
+    h = h.redistribute(mesh, [p if p == Shard(0) else Replicate()
+                              for p in h.placements])
+    t = h.reshape(b * s, d)
+    return t.redistribute(mesh, t.placements)
+
+
+def _tokens_back(y, b: int, s: int):
+    """The MoE's ``y [B·S, d]`` as ``[B, S, d]``.  A DTensor is replicated
+    first: its token dimension may be sharded over two mesh axes (a
+    partial sum reduce-scattered by the shared experts' product), which
+    DTensor's reshape to ``[B, S, d]`` mislays."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(y, DTensor):
+        y = y.redistribute(y.device_mesh, [Replicate()] * y.device_mesh.ndim)
+    return y.reshape(b, s, y.shape[-1])
+
+
 def _mix(h, layer: Layer, cfg: LMConfig):
     """The layer's feed-forward on h [B, S, d]: (y, aux), the MoE over the
     B·S tokens, or the SwiGLU with a float32 zero aux."""
     if hasattr(layer, "moe"):
         b, s, d = h.shape
-        y, aux = moe_apply(layer.moe, h.reshape(b * s, d), cfg.moe)
-        return y.reshape(b, s, d), aux
+        y, aux = moe_apply(layer.moe, _tokens(h), cfg.moe)
+        return _tokens_back(y, b, s), aux
     return _ffn(h, layer.mlp), torch.zeros((), dtype=torch.float32,
                                            device=h.device)
 
@@ -455,18 +515,40 @@ def embed_tokens(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig):
                       cfg.act_spec)
 
 
+# the products without batch dimensions, which ``remat_policy="dots"``
+# saves (an ``x @ w`` of the layer reaches the dispatcher as one of them)
+_DOTS = ("mm", "addmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if getattr(op, "_opname", None) in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def run_layers(x, layers, cfg: LMConfig, sin, cos):
     """``layers`` in turn on ``x`` -> (x, the sum of their MoE aux losses,
     float32).  With ``cfg.remat`` and gradients enabled each layer is
     recomputed in the backward (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``; the MoE dispatch is deterministic, so
-    the recompute routes as the first forward did)."""
+    the recompute routes as the first forward did); with
+    ``remat_policy="dots"`` the products without batch dimensions are
+    saved and only the rest is recomputed."""
     remat = cfg.remat and torch.is_grad_enabled()
+    kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in layers:
         if remat:
             x, a = checkpoint(_layer_fwd, x, layer, cfg, sin, cos,
-                              use_reentrant=False)
+                              use_reentrant=False, **kw)
         else:
             x, a = _layer_fwd(x, layer, cfg, sin, cos)
         aux = aux + a
@@ -508,7 +590,6 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
     and ``v`` ``[L, B, max_len, Hkv, D]``; MLA's ``ckv [L, B, max_len,
     kv_lora]`` and ``krope [L, B, max_len, rope_head_dim]``; ``pos`` an
     int32 scalar (the next position to write)."""
-    check_ported(cfg)
     lead = (cfg.n_layers, batch, max_len)
     if cfg.attn == "mla":
         shapes = {"ckv": lead + (cfg.kv_lora,),
@@ -539,9 +620,9 @@ def _gqa_decode(x, attn: Attention, cfg: LMConfig, cache_k, cache_v,
     q, k, v = _project(x, attn, cfg, sin, cos)
     _write(cache_k, k, pos)
     _write(cache_v, v, pos)
-    out = _gqa(q, cache_k, cache_v, causal=False, kv_len=pos + s,
-               fp32_logits=cfg.attn_fp32_logits)
-    return out.reshape(b, s, -1) @ attn.wo.to(x.dtype)
+    out = _attend(q, cache_k, cache_v, causal=False, kv_len=pos + s,
+                  fp32_logits=cfg.attn_fp32_logits)
+    return _merge_heads(out) @ attn.wo.to(x.dtype)
 
 
 def _mla_decode(x, attn: MLAAttention, cfg: LMConfig, cache_ckv, cache_kr,

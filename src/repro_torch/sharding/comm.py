@@ -34,6 +34,7 @@ from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 _scope = threading.local()
 
@@ -78,7 +79,10 @@ def axis_group(axes, mesh=None):
         dims = [names.index(a) for a in axes]
         rest = [d for d in range(len(names)) if d not in dims]
         size = math.prod(mesh.mesh.shape[d] for d in dims)
-        rows = mesh.mesh.permute(rest + dims).reshape(-1, size).tolist()
+        # outside the dry run's fake mode, if it is on: the ranks are
+        # values it would not have
+        with unset_fake_temporarily():
+            rows = mesh.mesh.permute(rest + dims).reshape(-1, size).tolist()
         me = dist.get_rank()
         for ranks in rows:  # every rank creates every group, in this order
             g = dist.new_group(ranks)

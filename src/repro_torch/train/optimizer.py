@@ -14,7 +14,10 @@ Compression: gradients can be quantized to int8 with a per-leaf scale and
 an error-feedback residual carried in the optimizer state
 (``grad_compress=True``).  The data-parallel mean (the reference's
 ``axis_name``) is an all-reduce over a process group, after the
-compression, as the reference's ``pmean``.
+compression, as the reference's ``pmean``.  A tree whose leaves are split
+over the ranks of a group (explicit-SPMD row shards, ``shards``) is
+clipped by the whole tree's norm and compressed with each whole leaf's
+scale: those leaves' squares and absmax are reduced over the group.
 """
 
 from __future__ import annotations
@@ -75,16 +78,38 @@ def adamw_init(params: dict[str, torch.Tensor], cfg: OptConfig) -> AdamWState:
                       err=zeros() if cfg.grad_compress else None)
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tree.values()))
+def global_norm(tree: dict[str, torch.Tensor], shards=None) -> torch.Tensor:
+    """The tree's L2 norm.  With ``shards = (group, names)`` each leaf of
+    ``names`` holds this rank's part of a leaf split over ``group``: their
+    squares are summed over the group, so every rank reads the norm of
+    the whole tree."""
+    def sq(keys):
+        return sum(torch.sum(tree[k].float() ** 2) for k in keys)
+
+    if shards is None:
+        return torch.sqrt(sq(tree))
+    import torch.distributed as dist
+
+    group, names = shards
+    dev = next(iter(tree.values())).device
+    split = sq([k for k in tree if k in names]) + torch.zeros(
+        (), dtype=torch.float32, device=dev)
+    dist.all_reduce(split, group=group)
+    return torch.sqrt(sq([k for k in tree if k not in names]) + split)
 
 
-def compress_int8(g: torch.Tensor, err: torch.Tensor):
+def compress_int8(g: torch.Tensor, err: torch.Tensor, group=None):
     """Quantize g+err to int8 with per-leaf absmax scale; return
     (quantized float value, new residual).  ``torch.round`` rounds half to
-    even, as ``jnp.round`` does."""
+    even, as ``jnp.round`` does.  With ``group`` (the leaf split over its
+    ranks) the absmax is the whole leaf's."""
     t = g.float() + err
-    scale = torch.clamp(torch.max(torch.abs(t)), min=1e-12) / 127.0
+    top = torch.max(torch.abs(t))
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(top, min=1e-12) / 127.0
     q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq, t - deq
@@ -93,14 +118,20 @@ def compress_int8(g: torch.Tensor, err: torch.Tensor):
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: AdamWState,
-                 cfg: OptConfig, group=None):
+                 cfg: OptConfig, group=None, shards=None):
     """One AdamW step, in place: returns ``(params, new_state,
     grad_norm)``, ``params`` and the state's moment dicts being the same
     objects, updated.  With ``group`` (a process group: the reference's
     ``axis_name``) the gradients are averaged over its ranks after the
-    compression, before the clipping."""
+    compression, before the clipping.  With ``shards = (group, names)``
+    the leaves of ``names`` are this rank's rows of leaves split over that
+    group: the compression's scale and the clipping norm are the whole
+    leaves' (:func:`global_norm`)."""
+    s_group, s_names = shards if shards is not None else (None, ())
     if cfg.grad_compress:
-        pairs = {k: compress_int8(g, state.err[k]) for k, g in grads.items()}
+        pairs = {k: compress_int8(g, state.err[k],
+                                  s_group if k in s_names else None)
+                 for k, g in grads.items()}
         grads = {k: pr[0] for k, pr in pairs.items()}
         for k, pr in pairs.items():
             state.err[k].copy_(pr[1])
@@ -113,7 +144,7 @@ def adamw_update(params: dict[str, torch.Tensor],
             dist.all_reduce(g, group=group)
             g.div_(n)
     # clip by global norm
-    gn = global_norm(grads)
+    gn = global_norm(grads, shards)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
 
     step = state.step + 1

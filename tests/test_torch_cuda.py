@@ -921,6 +921,88 @@ def test_cuda_engine_chunk_step_matches_cpu_and_executor(cuda):
     assert ops.launches["edge_exists"] > 0
 
 
+def _far_join_graph(cuda, n_v: int, n_words: int, block: int, seed: int):
+    """An engine graph on the card whose adjacency holds ``n_words`` words:
+    filler first, then three label blocks of ``block`` uniform edges each
+    (rows 1 and 2, then row 0, the join's label, last, so its ranges lie
+    past offset 2^30 when ``n_words`` does); row 2 copies half its edges
+    from row 0's, which makes closing edges.  Returns ``(nbr, iptr_rows,
+    bitmap)``."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    nbr = torch.zeros(n_words, dtype=torch.int32, device=cuda)
+    iptr = torch.empty((3, n_v + 1), dtype=torch.int32, device=cuda)
+    bases = (n_words - 2 * block, n_words - 3 * block, n_words - block)
+    join = None
+    for row in (0, 1, 2):
+        src = torch.randint(0, n_v, (block,), generator=gen, device=cuda)
+        dst = torch.randint(0, n_v, (block,), generator=gen, device=cuda)
+        if row == 2:
+            half = block // 2
+            pick = torch.randint(0, block, (half,), generator=gen,
+                                 device=cuda)
+            src[:half], dst[:half] = join[0][pick], join[1][pick]
+        key = torch.sort(src * n_v + dst).values
+        src, dst = key // n_v, key % n_v
+        if row == 0:
+            join = (src, dst)
+        nbr[bases[row]:bases[row] + block] = dst.to(torch.int32)
+        iptr[row, 0] = bases[row]
+        iptr[row, 1:] = (torch.cumsum(torch.bincount(src, minlength=n_v), 0)
+                         + bases[row]).to(torch.int32)
+    bm = torch.ones((n_v, 1), dtype=torch.int32, device=cuda)
+    return nbr, iptr, bm
+
+
+@pytest.mark.cuda
+def test_cuda_engine_cell_join_past_2_30(nccl_mesh):
+    """``engine_cell``'s step on a graph whose join label's block lies past
+    offset 2^30 of a 1.1e9-word adjacency (every join probe has ``lo + hi
+    > 2^31 - 1``, where an int32 midpoint wraps): the card's count and
+    overflow equal the CPU run's, and the join's ``edge_exists`` answers
+    equal the plain version's and numpy's ``searchsorted`` in int64."""
+    from repro_torch.core import engine_chunk_step
+    from repro_torch.core.distributed import engine_cell
+    from repro_torch.configs.turbohom import CONFIG
+
+    n_v, n_words, block = 100_000, 1_100_000_000, 300_000
+    nbr, iptr, bm = _far_join_graph(nccl_mesh.device_type, n_v, n_words,
+                                    block, seed=3)
+    deg0 = iptr[0, 1:] - iptr[0, :-1]
+    chunk = torch.nonzero(deg0 > 0).flatten()[:1024].to(torch.int32)
+    meta = {"cap": 1 << 17, "chunk": 1024}
+    step, _ = engine_cell(nccl_mesh, CONFIG, meta)
+    joins = []
+    orig = ops.edge_exists
+
+    def rec(*a, **kw):
+        out = orig(*a, **kw)
+        joins.append((a, kw, out))
+        return out
+
+    ops.edge_exists = rec
+    try:
+        got = step(nbr, iptr, bm, chunk[None], torch.tensor(
+            [1024], dtype=torch.int32, device="cuda")).tolist()
+    finally:
+        ops.edge_exists = orig
+    host = (nbr.cpu(), iptr.cpu(), bm.cpu())
+    c, o = engine_chunk_step(*host, chunk.cpu(), 1024, cap=meta["cap"],
+                             n_steps=3)
+    assert got == [int(c), int(o)] and got[0] > 0 and not got[1]
+    (jn, lo, hi, tg), kw, out = joins[0]
+    same(out, ref.edge_exists_ref(jn, lo, hi, tg, **kw))
+    lo_h, hi_h = lo.long().cpu().numpy(), hi.long().cpu().numpy()
+    assert lo_h.min() > (1 << 30) and (lo_h + hi_h).max() > (1 << 31) - 1
+    nbr_h, tg_h = host[0].numpy(), tg.long().cpu().numpy()
+    want = np.zeros(lo_h.shape[0], bool)
+    for i in range(lo_h.shape[0]):
+        seg = nbr_h[lo_h[i]:hi_h[i]].astype(np.int64)
+        p = np.searchsorted(seg, tg_h[i])
+        want[i] = p < seg.shape[0] and seg[p] == tg_h[i]
+    assert np.array_equal(out.cpu().numpy(), want)
+    assert want.any() and not want.all()
+
+
 @pytest.mark.cuda
 def test_cuda_timed_waits_for_nested_results(cuda):
     """``timed`` waits for the card's work behind a result nested in a

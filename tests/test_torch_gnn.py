@@ -142,7 +142,11 @@ def _grads_match(name, model, tbatch, jparams, jbatch, cfg, what):
 
 
 def test_registry_holds_the_reference_archs():
-    assert all_archs() == sorted(ASSIGNED)
+    from repro.configs import all_archs as ref_all_archs
+    from repro_torch.configs import ASSIGNED as PORT_ASSIGNED
+
+    assert all_archs() == ref_all_archs()
+    assert PORT_ASSIGNED == ASSIGNED
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -96,6 +96,13 @@ import repro_torch.sharding.gnn_spmd
 import repro_torch.sharding.lm
 import repro_torch.sharding.pipeline
 import repro_torch.sharding.specs
+import repro_torch.sharding.recsys
+import repro_torch.configs.turbohom
+import repro_torch.launch.cells
+import repro_torch.launch.dryrun
+import repro_torch.analysis.model_flops
+import repro_torch.analysis.perf
+import repro_torch.analysis.roofline
 from repro_torch.launch import train as launch_train
 with tempfile.TemporaryDirectory() as d:
     for arch in ("dlrm-rm2", "gcn-cora", "pna", "qwen3-8b"):
@@ -132,10 +139,13 @@ def test_no_source_imports_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + sorted(
         (ROOT / "tools").glob("*.py")) + [
             ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py",
-            ROOT / "tests" / "torch_sharding_ranks.py"]
+            ROOT / "tests" / "torch_sharding_ranks.py",
+            ROOT / "tests" / "torch_dryrun_probe.py"]
     assert len(files) > 20
     assert PKG / "store" / "versioned.py" in files
     assert PKG / "sharding" / "gnn_spmd.py" in files
+    assert PKG / "launch" / "dryrun.py" in files
+    assert PKG / "analysis" / "perf.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
 

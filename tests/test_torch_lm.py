@@ -496,8 +496,23 @@ def test_launch_train_full_lm_needs_batch_and_seq(argv):
 
 @pytest.mark.parametrize("change", [dict(remat_policy="dots")])
 def test_unported_variants_raise(change):
-    cfg = dataclasses.replace(get_arch("qwen3-8b").smoke()[0], **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        transformer.TransformerLM(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        transformer.init_cache(cfg, 1, 4)
+    """The variants the port once refused (``remat_policy="dots"``, ported
+    with the dry run) now raise nothing: they build, make a cache, and
+    their loss and gradients equal the default's (float32, remat on)."""
+    arch = get_arch("qwen3-8b")
+    base, batch = arch.smoke()
+    base = dataclasses.replace(base, compute_dtype="float32", remat=True)
+    cfg = dataclasses.replace(base, **change)
+    transformer.TransformerLM(cfg, device="meta")
+    assert transformer.init_cache(cfg, 1, 4)["k"].shape[:3] == (
+        cfg.n_layers, 1, 4)
+    runs = []
+    for c in (cfg, base):
+        model = model_for(arch, c, "cpu", torch.Generator().manual_seed(0))
+        loss = transformer.loss_fn(model, batch)
+        runs.append((float(loss), torch.autograd.grad(
+            loss, list(model.parameters()))))
+    (got, g_got), (want, g_want) = runs
+    assert got == want
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

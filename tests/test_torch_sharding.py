@@ -13,7 +13,10 @@
   ``(2, 2)`` and DimeNet v2 at 4 shards, the DP+TP step of ``qwen3-8b``'s
   smoke config in float32 over ``(2, 2)``, ``pipelined_loss`` over 4
   stages of ``("pod",)``, ``adamw_update(group=...)`` and the elastic
-  restore.
+  restore; the DP+TP step of ``deepseek-v2-236b``'s smoke config (MLA,
+  experts sharded over ``model``) and DLRM's explicit-SPMD train, serve
+  and retrieval steps (tables row-sharded over ``model``) against the
+  port's plain steps.
 
 Tolerances are the reference's own tests' (``tests/test_distributed.py``)
 or tighter, stated where used.
@@ -326,6 +329,107 @@ def _ref_lm(n_layers: int):
     return _ref_step(ref_tf.loss_fn, params, batch, cfg, LM_OPT)
 
 
+def _moe_cfg():
+    """deepseek-v2-236b's smoke config in float32 (the port's)."""
+    cfg = get_arch("deepseek-v2-236b").smoke()[0]
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_weights() -> dict:
+    return _port_weights("deepseek-v2-236b", _moe_cfg())
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_moe():
+    """The port's plain (unsharded) step on the same weights and batch:
+    the loss, the gradients, the gradient norm and the parameters after
+    one AdamW step."""
+    from repro_torch.models import transformer
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import make_train_step, value_and_grad
+
+    arch = get_arch("deepseek-v2-236b")
+    model = model_for(arch, _moe_cfg(), "cpu",
+                      torch.Generator().manual_seed(0))
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in _moe_weights().items()})
+    batch = arch.smoke()[1]
+    _, grads = value_and_grad(transformer.loss_fn, model, batch)
+    opt_cfg = OptConfig(**LM_OPT)
+    step = make_train_step(transformer.loss_fn, model, opt_cfg)
+    _, _, metrics = step(model, adamw_init(dict(model.named_parameters()),
+                                           opt_cfg), batch)
+    return (float(metrics["loss"]),
+            {k: g.numpy().copy() for k, g in grads.items()},
+            float(metrics["grad_norm"]),
+            {k: p.detach().numpy().copy()
+             for k, p in model.named_parameters()})
+
+
+# DLRM's explicit-SPMD steps: a clip norm the first steps' gradient norms
+# pass, so the clip scales them
+DLRM_OPT = dict(lr=1e-2, warmup_steps=1, clip_norm=0.01)
+
+
+def _dlrm_case() -> dict:
+    """Weights, an 8-row train batch (ids from -1, padding, to past each
+    table's end) and a retrieval query with 16 candidates, at
+    ``torch_sharding_ranks.dlrm_config``'s widths."""
+    from repro_torch.models.recsys import dlrm
+
+    cfg = torch_sharding_ranks.dlrm_config()
+    model = dlrm.DLRM(cfg, generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    k = cfg.hotness
+
+    def sparse(b):
+        return np.stack([rng.integers(-1, v + 3, (b, k))
+                         for v in cfg.vocab_sizes], axis=1).astype(np.int32)
+
+    batch = {"dense": rng.normal(size=(8, cfg.n_dense)).astype(np.float32),
+             "sparse": sparse(8),
+             "labels": rng.integers(0, 2, 8).astype(np.float32)}
+    ret = {"dense": rng.normal(size=(1, cfg.n_dense)).astype(np.float32),
+           "sparse": sparse(1),
+           "cand": rng.normal(size=(16, cfg.embed_dim)).astype(np.float32)}
+    return {"params": {k: v.detach().numpy().copy()
+                       for k, v in model.state_dict().items()},
+            "batch": batch, "retrieval": ret, "opt": DLRM_OPT}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_dlrm():
+    """The port's plain DLRM on ``_dlrm_case``: serve logits, retrieval
+    scores, the train loss's gradients, and two steps' losses, gradient
+    norms and parameters."""
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import make_train_step, value_and_grad
+
+    case = _dlrm_case()
+    model = dlrm.DLRM(torch_sharding_ranks.dlrm_config())
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case["params"].items()})
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    ret = {k: torch.from_numpy(v) for k, v in case["retrieval"].items()}
+    with torch.no_grad():
+        out = {"serve": model(batch).numpy(),
+               "retrieval": dlrm.retrieval_score(model, ret).numpy()}
+    _, grads = value_and_grad(dlrm.loss_fn, model, batch)
+    out["grads"] = {k: g.numpy().copy() for k, g in grads.items()}
+    opt_cfg = OptConfig(**DLRM_OPT)
+    step = make_train_step(dlrm.loss_fn, model, opt_cfg)
+    opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+    for i in range(2):
+        _, opt, metrics = step(model, opt, batch)
+        out[f"loss{i}"] = float(metrics["loss"])
+        out[f"grad_norm{i}"] = float(metrics["grad_norm"])
+    out["params"] = {k: p.detach().numpy().copy()
+                     for k, p in model.named_parameters()}
+    return out
+
+
 def _adamw_case() -> dict:
     rng = np.random.default_rng(5)
     params = {"w": rng.normal(size=(6, 5)).astype(np.float32),
@@ -378,6 +482,8 @@ def _ranks(tmp_path_factory):
                                "n_seg": int(n_seg)}
     for key, layers in (("dp_tp", 2), ("pipe", 4)):
         inputs[key] = {"params": _lm_weights(layers), "opt": LM_OPT}
+    inputs["moe"] = {"params": _moe_weights(), "opt": LM_OPT}
+    inputs["dlrm"] = _dlrm_case()
     box = {}
 
     def run():
@@ -410,6 +516,8 @@ def world(_ranks):
             _ref_gnn(name)
         _ref_lm(2)
         _ref_lm(4)
+        _plain_moe()
+        _plain_dlrm()
     finally:
         ranks.join()
     if "error" in box:
@@ -513,17 +621,16 @@ def test_gnn_spmd_step_matches_single_device_step(world, name):
             assert np.all(np.abs(got - w)[noise] <= 2 * GNN_OPT["lr"] + 1e-6)
 
 
-def _held_update(o: dict, tag: str, p0: dict, p1, gn: float) -> None:
+def _held_update(o: dict, tag: str, p0: dict, want: dict, gn: float
+                 ) -> None:
     """One AdamW step's result ``o[tag + "params"]`` from ``p0`` against
-    the reference's ``p1``: every parameter within rtol / atol 2e-3 (the
+    ``want`` (port names): every parameter within rtol / atol 2e-3 (the
     reference DP+TP test's limits), and, since the first step moves each
     element by about lr·sign(g) whatever the gradient's size (which those
     limits cannot tell from a zero or sign-flipped gradient), the update
-    ``p1 - p0`` of every leaf within ``LM_UPDATE_REL`` of the
+    ``want - p0`` of every leaf within ``LM_UPDATE_REL`` of the
     reference's by norm and the gradient norm the step clipped by within
     ``LM_GRAD_REL`` of the reference's (a gradient off by a factor)."""
-    want = {k: v.numpy() for k, v in params_from_jax("qwen3-8b",
-                                                     p1).items()}
     got = o[tag + "params"]
     assert sorted(got) == sorted(want)
     for k in want:
@@ -532,6 +639,19 @@ def _held_update(o: dict, tag: str, p0: dict, p1, gn: float) -> None:
     worst = max(_rel(want[k] - p0[k], got[k] - p0[k]) for k in want)
     assert worst < LM_UPDATE_REL, worst
     assert o[tag + "grad_norm"] == pytest.approx(gn, rel=LM_GRAD_REL)
+
+
+def _lm_named(tree) -> dict:
+    """A reference LM tree (stacked layers) as the port's named arrays."""
+    return {k: v.numpy() for k, v in params_from_jax("qwen3-8b",
+                                                     tree).items()}
+
+
+def _held_grads(got: dict, want: dict) -> None:
+    """Every gradient leaf within ``LM_GRAD_REL`` of ``want``'s by norm."""
+    assert sorted(got) == sorted(want)
+    worst = max(_rel(want[k], got[k]) for k in want)
+    assert worst < LM_GRAD_REL, worst
 
 
 def test_dp_tp_step_matches_single_device(world):
@@ -543,15 +663,12 @@ def test_dp_tp_step_matches_single_device(world):
     specs."""
     inputs, outs = world
     loss1, g1, p1, gn1 = _ref_lm(2)
-    want_g = {k: v.numpy() for k, v in params_from_jax("qwen3-8b",
-                                                       g1).items()}
     for o in outs:
         assert abs(o["dp_tp/loss"] - loss1) < 1e-3
         assert abs(o["dp_tp/hinted_loss"] - o["dp_tp/plain_loss"]) < 1e-6
-        assert sorted(o["dp_tp/grads"]) == sorted(want_g)
-        worst = max(_rel(want_g[k], o["dp_tp/grads"][k]) for k in want_g)
-        assert worst < LM_GRAD_REL, worst
-        _held_update(o, "dp_tp/", inputs["dp_tp"]["params"], p1, gn1)
+        _held_grads(o["dp_tp/grads"], _lm_named(g1))
+        _held_update(o, "dp_tp/", inputs["dp_tp"]["params"], _lm_named(p1),
+                     gn1)
     o = outs[0]
     assert o["dp_tp/placements"]["dense_layers.0.attn.wq"] == [
         "S(0)", "S(1)"]
@@ -561,6 +678,63 @@ def test_dp_tp_step_matches_single_device(world):
     assert o["dp_tp/placements"]["final_ln"] == ["R", "R"]
     assert o["dp_tp/local_shapes"]["lm_head"] == (32, 128)
     assert o["dp_tp/logits_placements"] == ["S(0)", "R"]
+
+
+def test_moe_dp_tp_step_matches_plain_step(world):
+    """The DP+TP step of DeepSeek-V2's smoke config (experts sharded over
+    ``model``) over (2, 2) against the port's plain step on the same
+    weights and batch: the loss within 1e-3 (the DP+TP step's limit),
+    every gradient leaf within ``LM_GRAD_REL`` by norm (the sum over
+    ``model`` in the sharded backward: a missing or doubled one is off by
+    a factor), the step's parameters as :func:`_held_update` holds them;
+    the experts sharded over ``model`` and ZeRO-sharded over ``data``."""
+    inputs, outs = world
+    loss, grads, gn, params = _plain_moe()
+    for o in outs:
+        assert abs(o["moe/loss"] - loss) < 1e-3
+        _held_grads(o["moe/grads"], grads)
+        _held_update(o, "moe/", inputs["moe"]["params"], params, gn)
+        assert o["moe/expert_placements"] == ["S(1)", "S(0)"]
+
+
+def test_dlrm_sharded_steps_match_plain_steps(world):
+    """DLRM's explicit-SPMD steps over (data 2, model 2), two of four
+    tables row-sharded over ``model``, against the port's plain DLRM on
+    the same weights and batches: each rank's serve logits (its data
+    rows) and retrieval scores (its block of candidates) within rtol
+    1e-5 / atol 1e-6, every gradient leaf within ``LM_GRAD_REL`` by norm,
+    and two AdamW steps whose clip binds: each step's loss within 1e-6
+    and gradient norm within ``LM_GRAD_REL`` (a norm of one rank's rows
+    only is off), and the parameters after them within ``STEP_PARAMS``
+    with each leaf's update within ``LM_UPDATE_REL`` by norm (the
+    replicated MLPs stay equal across ``model`` ranks)."""
+    inputs, outs = world
+    want = _plain_dlrm()
+    p0 = inputs["dlrm"]["params"]
+    assert min(want["grad_norm0"], want["grad_norm1"]) > \
+        2 * DLRM_OPT["clip_norm"]
+    b = inputs["dlrm"]["batch"]["labels"].shape[0] // 2
+    n = inputs["dlrm"]["retrieval"]["cand"].shape[0] // 4
+    assert sorted(o["dlrm/block"] for o in outs) == [0, 1, 2, 3]
+    for o in outs:
+        assert o["dlrm/sharded"] == [True, False, True, False]
+        d, r = o["dlrm/data_rank"], o["dlrm/block"]
+        np.testing.assert_allclose(o["dlrm/serve"],
+                                   want["serve"][d * b:(d + 1) * b],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(o["dlrm/retrieval"],
+                                   want["retrieval"][r * n:(r + 1) * n],
+                                   rtol=1e-5, atol=1e-6)
+        _held_grads(o["dlrm/grads"], want["grads"])
+        for i in range(2):
+            assert abs(o[f"dlrm/loss{i}"] - want[f"loss{i}"]) < 1e-6
+            assert o[f"dlrm/grad_norm{i}"] == pytest.approx(
+                want[f"grad_norm{i}"], rel=LM_GRAD_REL)
+        got = o["dlrm/params"]
+        assert sorted(got) == sorted(want["params"])
+        for k, w in want["params"].items():
+            np.testing.assert_allclose(got[k], w, **STEP_PARAMS, err_msg=k)
+            assert _rel(w - p0[k], got[k] - p0[k]) < LM_UPDATE_REL, k
 
 
 def test_pipeline_matches_dense(world):
@@ -586,7 +760,8 @@ def test_pipeline_train_step_matches_dense_step(world):
     loss, _, p1, gn = _ref_lm(4)
     for o in outs:
         assert abs(o["pipe/step_loss"] - loss) < 2e-3
-        _held_update(o, "pipe/step_", inputs["pipe"]["params"], p1, gn)
+        _held_update(o, "pipe/step_", inputs["pipe"]["params"],
+                     _lm_named(p1), gn)
 
 
 @pytest.mark.parametrize("compress", [False, True])

@@ -161,6 +161,131 @@ def lm_dp_tp(mesh, inputs: dict) -> dict:
                                    for k, p in model.named_parameters()}}
 
 
+def moe_dp_tp(mesh, inputs: dict) -> dict:
+    """The DP+TP step of ``deepseek-v2-236b``'s smoke config (MLA, one
+    dense and one MoE layer, 4 experts top-2) in float32: the experts
+    sharded over ``model`` by the specs, the routed part per rank
+    (``moe._moe_sharded``); its gradients (the full tensors) and one AdamW
+    step's loss, gradient norm and parameters."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.sharding import lm
+    from repro_torch.sharding.specs import full
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import value_and_grad
+
+    case = inputs["moe"]
+    arch = get_arch("deepseek-v2-236b")
+    cfg, batch = arch.smoke()
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = _model(arch, cfg, case["params"])
+    opt_cfg = OptConfig(**case["opt"])
+    specs = lm.shard_module(model, mesh)
+    opt = lm.shard_opt_state(adamw_init(
+        {k: full(p) for k, p in model.named_parameters()}, opt_cfg), specs,
+        mesh)
+    step = lm.make_dp_tp_train_step(transformer.loss_fn, model, opt_cfg)
+    sbatch = lm.shard_batch(batch, mesh)
+    with implicit_replication():
+        _, grads = value_and_grad(transformer.loss_fn, model, sbatch)
+    grads = {k: _np(full(g)) for k, g in grads.items()}
+    _, opt, metrics = step(model, opt, sbatch)
+    return {"moe/loss": float(full(metrics["loss"])),
+            "moe/grad_norm": float(full(metrics["grad_norm"])),
+            "moe/grads": grads,
+            "moe/params": {k: _np(full(p))
+                           for k, p in model.named_parameters()},
+            "moe/expert_placements": [
+                str(p) for p in model.moe_layers[0].moe.w_gate.placements]}
+
+
+def dlrm_config():
+    """DLRM's smoke widths with four fields, two of whose tables (8192 and
+    4096 rows) the recsys specs row-shard over a 2-wide ``model`` axis."""
+    from repro_torch.configs.dlrm_rm2 import SMALL
+
+    return dataclasses.replace(SMALL, n_sparse=4,
+                               vocab_sizes=(8192, 64, 4096, 100))
+
+
+def dlrm_sharded(mesh, inputs: dict) -> dict:
+    """DLRM's explicit-SPMD steps (``sharding.recsys``) over ``(data 2,
+    model 2)``: this rank's serve logits and retrieval scores, the train
+    loss's gradients (after the data-parallel mean; a sharded table's
+    gathered over ``model``), and two AdamW steps' losses, gradient norms
+    and parameters (whole tables)."""
+    import torch.distributed as dist
+    from torch import nn
+
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.sharding.comm import mesh_scope, pmean_
+    from repro_torch.sharding.recsys import (embed_bags_sharded,
+                                             make_sharded_step,
+                                             sharded_tables)
+    from repro_torch.sharding.specs import param_specs
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import value_and_grad
+
+    case = inputs["dlrm"]
+    cfg = dlrm_config()
+    model = dlrm.DLRM(cfg)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case["params"].items()})
+    specs = param_specs(model, "recsys", mesh)
+    sharded = sharded_tables(specs, cfg.n_sparse)
+    m, d = mesh.get_local_rank("model"), mesh.get_local_rank("data")
+    group = mesh.get_group("model")
+    for i, s in enumerate(sharded):
+        if s:
+            rows = model.tables[i].shape[0] // 2
+            model.tables[i] = nn.Parameter(
+                model.tables[i].detach()[m * rows:(m + 1) * rows].clone())
+    names = {f"tables.{i}" for i, s in enumerate(sharded) if s}
+
+    def whole(tree: dict) -> dict:
+        out = {}
+        for k, t in tree.items():
+            if k in names:
+                parts = [torch.empty_like(t) for _ in range(2)]
+                dist.all_gather(parts, t.detach().contiguous(), group=group)
+                t = torch.cat(parts)
+            out[k] = _np(t)
+        return out
+
+    b = case["batch"]["labels"].shape[0] // 2
+    local = {k: torch.from_numpy(v[d * b:(d + 1) * b])
+             for k, v in case["batch"].items()}
+    r = d * 2 + m  # the candidates' block: ("data", "model") data-major
+    n = case["retrieval"]["cand"].shape[0] // 4
+    ret = {k: torch.from_numpy(v[r * n:(r + 1) * n] if k == "cand" else v)
+           for k, v in case["retrieval"].items()}
+    out = {"dlrm/sharded": sharded, "dlrm/data_rank": d, "dlrm/block": r,
+           "dlrm/serve": _np(make_sharded_step(model, mesh, specs, "serve")(
+               model, local)),
+           "dlrm/retrieval": _np(make_sharded_step(
+               model, mesh, specs, "retrieval")(model, ret))}
+
+    def loss(mod, batch):
+        return dlrm.loss_fn(mod, batch, embed_bags_sharded(
+            mod.tables, batch["sparse"], cfg.dtype, sharded, mesh))
+
+    with mesh_scope(mesh):
+        _, grads = value_and_grad(loss, model, local)
+        pmean_(grads.values(), ("data",))
+    out["dlrm/grads"] = whole(grads)
+    opt_cfg = OptConfig(**case["opt"])
+    step = make_sharded_step(model, mesh, specs, "train", opt_cfg)
+    opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+    for i in range(2):
+        _, opt, metrics = step(model, opt, local)
+        out[f"dlrm/loss{i}"] = float(metrics["loss"])
+        out[f"dlrm/grad_norm{i}"] = float(metrics["grad_norm"])
+    out["dlrm/params"] = whole(dict(model.named_parameters()))
+    return out
+
+
 def pipeline(mesh_pod, inputs: dict) -> dict:
     """``pipelined_loss`` over 4 stages of ``("pod",)`` with 2
     microbatches (its gradients averaged over the stages), then one step
@@ -260,6 +385,8 @@ def all_cases(rank: int, world: int, device: str, inputs: dict) -> dict:
     out.update(aggregations(rank, mesh, inputs["agg"]))
     out.update(gnn_steps(mesh, inputs, mesh_data))
     out.update(lm_dp_tp(mesh, inputs))
+    out.update(moe_dp_tp(mesh, inputs))
+    out.update(dlrm_sharded(mesh, inputs))
     out.update(pipeline(mesh_pod, inputs))
     out.update(adamw_group(rank, mesh_data, inputs))
     out.update(elastic(device, inputs))
